@@ -1,22 +1,22 @@
 #!/usr/bin/env python
-"""Fused-SHT accuracy vs harmonic order (VERDICT r3 #4).
+"""SHT and composed-FT accuracy against a float64 host reference.
 
-Forward / inverse / round-trip relative L2 error of the f32 FusedSHT (and the
-f32 jnp SHT, and bf16-table FusedSHT) against a float64 host (numpy)
-reference at L in {16, 64, 127, 128} on the production angular grids.
-Run on CPU (interpret-mode kernels execute the identical arithmetic graph to
-the TPU lowering at f32; table contents are bit-identical).
+HostSHT64 is a numpy float64 implementation with the exact layout and
+normalization of ops.sht. `measure` gives the forward / inverse / round-trip
+relative L2 error of the float32 jnp SHT at one (L, n_theta, n_phi);
+`composed_ft_accuracy` the error of the full FT = iSHT∘Hankel∘SHT against
+a float64 host composition. Both run on JAX's default device:
+
+    python scripts/sht_accuracy.py                 # the four standard cases
+    python scripts/sht_accuracy.py 64,256,512      # L,n_theta,n_phi
 """
 import sys
 
 import numpy as np
 import jax
 
-jax.config.update("jax_platforms", "cpu")
-
-from xframe_tpu.library.legendre import gauss_legendre, sph_legendre_table_full_m  # noqa: E402
-from xframe_tpu.ops.sht import SphericalHarmonicTransform  # noqa: E402
-from xframe_tpu.ops.pallas_sht import FusedSHT  # noqa: E402
+from xframe_tpu.library.legendre import gauss_legendre, sph_legendre_table_full_m
+from xframe_tpu.ops.sht import SphericalHarmonicTransform
 
 
 class HostSHT64:
@@ -53,46 +53,72 @@ def rel(a, b):
     return float(np.linalg.norm(np.ravel(a - b)) / np.linalg.norm(np.ravel(b)))
 
 
-def measure(L, nt, nph, n_q=4, table_dtype=None, seed=0):
+def measure(L, nt, nph, n_q=4, seed=0):
+    """Relative errors of the float32 jnp SHT on white band-limited
+    coefficients: forward (f64 field → coefficients), inverse, round trip."""
     ref = HostSHT64(L, nt, nph)
     rng = np.random.default_rng(seed)
     c0 = (rng.standard_normal((n_q, 2 * L + 1, L + 1))
           + 1j * rng.standard_normal((n_q, 2 * L + 1, L + 1))) * ref.mask
     f64 = ref.inverse(c0)                # band-limited field, float64
-    c64 = ref.forward(f64)               # == c0 up to f64 quadrature error
-    sanity = rel(c64, c0)
-
     sht = SphericalHarmonicTransform(L, n_theta=nt, n_phi=nph)
-    fused = FusedSHT(sht, table_dtype=table_dtype)
     f32 = np.asarray(f64, dtype=np.complex64)
-    c_f = np.asarray(jax.jit(fused.forward)(f32))
-    f_i = np.asarray(jax.jit(fused.inverse)(c0.astype(np.complex64)))
-    rt = np.asarray(jax.jit(lambda x: fused.forward(fused.inverse(x)))(
-        c0.astype(np.complex64)))
     c_j = np.asarray(jax.jit(sht.forward)(f32))
+    f_j = np.asarray(jax.jit(sht.inverse)(c0.astype(np.complex64)))
     rt_j = np.asarray(jax.jit(lambda x: sht.forward(sht.inverse(x)))(
         c0.astype(np.complex64)))
-    mask = ref.mask
     return {
-        "sanity_f64": sanity,
-        "fused_fwd": rel(c_f * mask, c0),
-        "fused_inv": rel(f_i, f64),
-        "fused_rt": rel(rt * mask, c0),
-        "jnp_fwd": rel(c_j * mask, c0),
-        "jnp_rt": rel(rt_j * mask, c0),
+        "sanity_f64": rel(ref.forward(f64), c0),
+        "forward": rel(c_j * ref.mask, c0),
+        "inverse": rel(f_j, f64),
+        "roundtrip": rel(rt_j * ref.mask, c0),
     }
+
+
+def composed_ft_accuracy(ft, forward_and_roundtrip=None, shell_stride=8,
+                         seed=3):
+    """Composed FT of a float32 SphericalFourierTransform against a float64
+    host composition, on white band-limited coefficients. Band-limit
+    identities keep the host side affordable (SHT∘iSHT is exact on
+    band-limited coefficients, so host analysis steps are skipped), and only
+    every `shell_stride`-th radial shell is synthesized in f64 (the Hankel
+    still mixes all shells). forward_and_roundtrip: the device function to
+    test (default jit(ft.forward_and_roundtrip)).
+
+    → {"forward": rel. L2 of FT(ρ), "roundtrip": of iFT(FT(ρ)),
+       "defect_gap": |f32 − f64| round-trip quadrature defect}."""
+    from xframe_tpu.ops.hankel import generate_weights, assemble_weights
+    nq, L = ft.n_radial_points, ft.sht.l_max
+    ref = HostSHT64(L, ft.sht.n_theta, ft.sht.n_phi)
+    rng = np.random.default_rng(seed)
+    c0 = (rng.standard_normal((nq, 2 * L + 1, L + 1))
+          + 1j * rng.standard_normal((nq, 2 * L + 1, L + 1))) * ref.mask
+    rho64 = ref.inverse(c0)
+    wd = generate_weights(L, nq, ft.reciprocity_coefficient, 3, ft.mode)
+    w64 = assemble_weights(np.asarray(wd['weights']), ft.r_max,
+                           ft.reciprocity_coefficient, 3, ft.mode,
+                           dtype=np.complex128)
+    skip = 1 if ft.hankel.skip_zero else 0
+    cf64 = np.einsum('kpl,kml->pml', w64['forward'], c0[skip:], optimize=True)
+    cr64 = np.einsum('kpl,kml->pml', w64['inverse'], cf64[skip:],
+                     optimize=True)
+    sel = np.arange(0, nq, shell_stride)
+    psi64 = ref.inverse(cf64[sel])
+    rt64 = ref.inverse(cr64[sel])
+    fn = forward_and_roundtrip or jax.jit(ft.forward_and_roundtrip)
+    psi32, rt32 = fn(rho64.astype(np.complex64))
+    psi32 = np.asarray(psi32)[sel].astype(np.complex128)
+    rt32 = np.asarray(rt32)[sel].astype(np.complex128)
+    return {"forward": rel(psi32, psi64), "roundtrip": rel(rt32, rt64),
+            "defect_gap": abs(rel(rt32, rho64[sel]) - rel(rt64, rho64[sel]))}
 
 
 if __name__ == "__main__":
     cases = [(16, 64, 128), (64, 256, 512), (127, 320, 640), (128, 320, 640)]
     if len(sys.argv) > 1:
         cases = [tuple(int(x) for x in a.split(",")) for a in sys.argv[1:]]
+    print("device:", jax.devices()[0].platform, jax.devices()[0].device_kind)
     for L, nt, nph in cases:
         r = measure(L, nt, nph)
-        print(f"L={L:4d} grid {nt}x{nph} f32 :",
+        print(f"L={L:4d} grid {nt}x{nph} f32:",
               " ".join(f"{k}={v:.3e}" for k, v in r.items()), flush=True)
-        import ml_dtypes
-        rb = measure(L, nt, nph, table_dtype=ml_dtypes.bfloat16)
-        print(f"L={L:4d} grid {nt}x{nph} bf16:",
-              " ".join(f"{k}={v:.3e}" for k, v in rb.items()
-                       if k.startswith("fused")), flush=True)

@@ -9,8 +9,8 @@ The rebuild realizes the decision as a carried 0/1 gate multiplying the
 compiled ft-stab structure (phasing._ft_gate / PhasingState.enforce_hist).
 These tests pin the equivalence: a linked schedule must match the SAME
 schedule with ft_stab flags resolved by hand from the observed enforce flags
-— per-iteration errors and final densities — across the fused eager path,
-the fused replay path, and the chunked CheckpointingRunner."""
+— per-iteration errors and final densities — on the jnp path and through
+the chunked CheckpointingRunner."""
 import os
 
 import numpy as np
@@ -24,14 +24,14 @@ from xframe_tpu.projects.fxs.phasing import MTIP, Segment, build_schedule
 
 @pytest.fixture(scope="module")
 def demo():
-    return make_demo_problem(12, 6, fused_sht=True)
+    return make_demo_problem(12, 6)
 
 
-def _mtip_clone(p, best_mode, enforce_limit=np.inf):
+def _mtip_clone(p, enforce_limit=np.inf):
+    """Fresh MTIP on the demo's constraints."""
     m = p.mtip
     return MTIP(p.ft, m.rc, m.real, m.sw, m._w_err_host, m.initial_support,
-                enforce_initial_support_limit=enforce_limit,
-                best_mode=best_mode)
+                enforce_initial_support_limit=enforce_limit)
 
 
 def _linked_schedule(sw_sigma, delay=1):
@@ -80,42 +80,40 @@ def _assert_same(s_a, e_a, s_b, e_b, tol=2e-5):
                                rtol=tol)
 
 
-@pytest.mark.parametrize("mode", ["eager", "replay"])
 @pytest.mark.parametrize("limit,flags", [
     (np.inf, [False, False]),     # never enforced → ft turns ON after SW 1
     (-1.0, [True, True]),         # always enforced → ft stays OFF
 ])
-def test_linked_matches_hand_resolved(demo, mode, limit, flags):
+def test_linked_matches_hand_resolved(demo, limit, flags):
     p = demo
     sched = _linked_schedule(p.mtip.sw.default_sigma)
     rho0 = p.initial_density_batch(5, 1)[0]
-    m_dyn = _mtip_clone(p, mode, enforce_limit=limit)
+    m_dyn = _mtip_clone(p, enforce_limit=limit)
     s_dyn, e_dyn = _run(m_dyn, sched, rho0)
     # the dynamic run must have recorded exactly these enforce flags
     hist = np.asarray(s_dyn.enforce_hist)
     assert hist.shape[-1] == 1          # delay 1 → history length 1
-    m_st = _mtip_clone(p, mode, enforce_limit=limit)
+    m_st = _mtip_clone(p, enforce_limit=limit)
     s_st, e_st = _run(m_st, _resolved_schedule(sched, flags), rho0)
     _assert_same(s_dyn, e_dyn, s_st, e_st)
 
 
-@pytest.mark.parametrize("mode", ["eager", "replay"])
-def test_linked_mixed_enforcement(demo, mode):
+def test_linked_mixed_enforcement(demo):
     """Pick an enforce limit BETWEEN the two pre-SW errors so the two SW
     events record different flags — the gate must flip mid-run."""
     p = demo
     sched = _linked_schedule(p.mtip.sw.default_sigma)
     rho0 = p.initial_density_batch(7, 1)[0]
-    probe, e = _run(_mtip_clone(p, mode), sched, rho0)
+    probe, e = _run(_mtip_clone(p), sched, rho0)
     pre_sw = sorted([e[4, 0], e[8, 0]])   # errors entering SW 1 and SW 2
     if np.isclose(pre_sw[0], pre_sw[1], rtol=1e-3):
         pytest.skip("pre-SW errors coincide; cannot split them")
     limit = float(np.sqrt(pre_sw[0] * pre_sw[1]))
-    m_dyn = _mtip_clone(p, mode, enforce_limit=limit)
+    m_dyn = _mtip_clone(p, enforce_limit=limit)
     s_dyn, e_dyn = _run(m_dyn, sched, rho0)
     flags = [bool(e_dyn[4, 0] > limit), bool(e_dyn[8, 0] > limit)]
     assert flags[0] != flags[1]
-    m_st = _mtip_clone(p, mode, enforce_limit=limit)
+    m_st = _mtip_clone(p, enforce_limit=limit)
     s_st, e_st = _run(m_st, _resolved_schedule(sched, flags), rho0)
     _assert_same(s_dyn, e_dyn, s_st, e_st)
     # and the carried history holds the newest flag
@@ -128,11 +126,11 @@ def test_linked_delay2_gate_stays_off_until_two_events(demo):
     p = demo
     sched = _linked_schedule(p.mtip.sw.default_sigma, delay=2)
     rho0 = p.initial_density_batch(9, 1)[0]
-    m_dyn = _mtip_clone(p, "eager")                 # limit inf: never enforce
+    m_dyn = _mtip_clone(p)                 # limit inf: never enforce
     s_dyn, e_dyn = _run(m_dyn, sched, rho0)
     # hand resolution: seg1 off (0 events), seg3 off (1 event < delay),
     # seg5 ON (2 events, none enforced)
-    m_st = _mtip_clone(p, "eager")
+    m_st = _mtip_clone(p)
     static = _resolved_schedule(sched, [False, False], delay=2)
     assert [s.ft_stab for s in static if s.method != "SW"] \
         == [False, False, True, True]
@@ -147,15 +145,15 @@ def test_linked_checkpoint_runner_matches(demo, tmp_path):
     p = demo
     sched = _linked_schedule(p.mtip.sw.default_sigma)
     rho0s = p.initial_density_batch(11, 2)
-    m_a = _mtip_clone(p, "replay")
+    m_a = _mtip_clone(p)
     s_a, e_a = jax.jit(lambda r: m_a.run_batch(r, sched))(rho0s)
-    m_b = _mtip_clone(p, "replay")
+    m_b = _mtip_clone(p)
     ckpt = str(tmp_path / "link_ckpt.h5")
     runner = CheckpointingRunner(m_b, sched, checkpoint_path=ckpt)
     # run the first chunk, then resume from disk for the rest — the
     # enforce history must survive the checkpoint round-trip
     runner(rho0s, resume=False, max_chunks=1)
-    m_c = _mtip_clone(p, "replay")
+    m_c = _mtip_clone(p)
     runner2 = CheckpointingRunner(m_c, sched, checkpoint_path=ckpt)
     s_b, e_b = runner2(rho0s, resume=True)
     np.testing.assert_allclose(np.asarray(e_b), np.asarray(e_a),

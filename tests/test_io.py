@@ -1,34 +1,12 @@
-"""IO layer tests: hostio shims, database templating/dispatch, run numbering,
-VTK output structure."""
+"""IO layer tests: database templating/dispatch, run numbering, VTK output
+structure."""
 import os
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 
-from xframe_tpu.library.hostio import to_host, to_device_complex, tree_to_host
 from xframe_tpu.io.database import DefaultDB
 from xframe_tpu.io import hdf5
-
-
-def test_to_host_dtypes():
-    assert to_host(jnp.ones((3,), jnp.float32)).dtype == np.float32
-    c = to_host(jnp.asarray([1 + 2j], jnp.complex64))
-    assert np.iscomplexobj(c) and c[0] == 1 + 2j
-    b = to_host(jnp.asarray([True, False]))
-    assert b.dtype == bool and b.tolist() == [True, False]
-    i = to_host(jnp.asarray([3, -4], jnp.int32))
-    assert i.tolist() == [3, -4]
-    assert to_host(np.arange(3)).tolist() == [0, 1, 2]  # passthrough
-
-
-def test_to_device_complex_roundtrip():
-    x = np.array([[1 + 2j, -3.5j], [0.25, 4 - 1j]])
-    d = to_device_complex(x)
-    assert d.dtype == jnp.complex64
-    assert np.allclose(to_host(d), x)
-    tree = tree_to_host({"a": jnp.ones(2), "b": (jnp.zeros(1),)})
-    assert isinstance(tree["a"], np.ndarray)
 
 
 def test_database_templating(tmp_path):

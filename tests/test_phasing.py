@@ -125,48 +125,6 @@ def test_phasing_converges_and_recovers_invariants(problem):
     assert corr > 0.9, f"real-space correlation {corr}"
 
 
-def test_fused_pipeline_ground_truth_fidelity(problem):
-    """The fully-fused Pallas pipeline (ops.pallas_mtip) recovers the ground
-    truth to the same real-space fidelity as the stepwise path: same problem,
-    same schedule, fused kernels end to end (interpret mode on CPU)."""
-    ft0, mtip0 = problem["ft"], problem["mtip"]
-    ft = SphericalFourierTransform(problem["N"], problem["L"], q_max=ft0.q_max,
-                                   mode="midpoint",
-                                   reciprocity_coefficient=2.0,
-                                   real_dtype=jnp.float32, fused_sht=True)
-    mtip = MTIP(ft, mtip0.rc, mtip0.real, mtip0.sw,
-                np.asarray(mtip0._w_err), np.asarray(mtip0.initial_support),
-                enforce_initial_support_limit=6e-3)
-    assert mtip._fi is not None
-    schedule = [
-        Segment('HIO', 40, betas=np.full(40, 0.5), ft_stab=True),
-        Segment('SW', sigma=mtip.sw.default_sigma * 2, threshold=0.09),
-        Segment('ER', 20, betas=np.zeros(20), ft_stab=True),
-        Segment('SW', sigma=mtip.sw.default_sigma, threshold=0.09),
-        Segment('ER', 40, betas=np.zeros(40), ft_stab=True),
-    ]
-    rho0 = _initial_density(problem, jax.random.PRNGKey(7))
-    state, errors = jax.jit(lambda r: mtip.run(r, schedule))(rho0)
-    errors = np.asarray(errors)
-    assert np.isfinite(errors).all()
-    assert errors[-1, 0] < 5e-2
-
-    from xframe_tpu.projects.fxs.alignment import Aligner
-    w = np.asarray(problem["integ"]._w)
-    aligner = Aligner(ft0, w)
-    rho_t_c, _ = aligner.center(
-        jnp.asarray(problem["rho_true"], dtype=jnp.complex64))
-    rho_r_c, _ = aligner.center(state.best_rho)
-    ref_coeff = aligner.coefficients(rho_t_c)
-    rho_aligned, _, _ = aligner.align(rho_r_c, ref_coeff,
-                                      check_point_inversion=True)
-    a = np.abs(np.asarray(rho_aligned))
-    t = np.abs(np.asarray(rho_t_c))
-    corr = float((w * a * t).sum()
-                 / np.sqrt((w * a * a).sum() * (w * t * t).sum()))
-    assert corr > 0.9, f"fused-pipeline real-space correlation {corr}"
-
-
 def test_multi_start_vmap(problem):
     mtip = problem["mtip"]
     schedule = [
@@ -263,8 +221,8 @@ def test_newton_schulz_procrustes_matches_svd(problem):
 
 
 def test_ns_bucketed_polar_matches_svd_multi_bucket():
-    """At L ≥ 65 the NS polar path splits orders into multiple MXU tile
-    buckets (l ≤ 63 on 1-tile 127-wide crops, l ≥ 64 on 2-tile crops); the
+    """At L ≥ 65 the NS polar path splits orders into multiple crop
+    buckets (l ≤ 63 on 127-wide crops, l ≥ 64 on 255-wide crops); the
     result must match the exact SVD polar factor on every valid window."""
     from dataclasses import replace
     from xframe_tpu.projects.fxs.projections import ReciprocalConstraint
@@ -300,127 +258,6 @@ def test_ns_bucketed_polar_matches_svd_multi_bucket():
         eye_out = np.eye(n_m, dtype=out.dtype)
         eye_out[win, win] = 0.0
         np.testing.assert_allclose(out, eye_out, atol=1e-5)
-
-
-def test_pallas_bucketed_polar_multi_bucket():
-    """The VMEM pallas NS path now runs EVERY tile bucket — including the
-    full-width l = L block — through the kernel (round 5: this is what makes
-    it production-capable). At L = 66 (buckets (0..63, h=63), (64..65, h=65),
-    plus l = L = 66 full) it must match the jnp NS path per order, both with
-    the fixed iteration and the minimax schedule."""
-    from dataclasses import replace
-    from xframe_tpu.projects.fxs.projections import ReciprocalConstraint
-    from xframe_tpu.ops.polar_schedule import DEFAULT_SCHEDULE
-    rng = np.random.default_rng(13)
-    L = 66
-    n_q = 2 * L + 3
-    mats = [rng.normal(size=(n_q, min(2 * l + 1, n_q)))
-            + 1j * rng.normal(size=(n_q, min(2 * l + 1, n_q)))
-            for l in range(L + 1)]
-    rc = ReciprocalConstraint.build(
-        mats, radial_points=np.linspace(0.1, 1.0, n_q), l_max=L,
-        odd_orders_to_0=False, use_averaged_intensity=False,
-        schmidt_scaling=False)
-    n_m = 2 * L + 1
-    Ilm = (rng.normal(size=(n_q, n_m, L + 1))
-           + 1j * rng.normal(size=(n_q, n_m, L + 1))).astype(np.complex64)
-    for l in range(L + 1):
-        Ilm[:, :L - l, l] = 0
-        Ilm[:, L + l + 1:, l] = 0
-    for sched in (None, DEFAULT_SCHEDULE):
-        rc_ns = replace(rc, procrustes_method="newton_schulz",
-                        ns_iterations=16, ns_schedule=sched)
-        rc_pl = replace(rc, procrustes_method="newton_schulz_pallas",
-                        ns_iterations=16, ns_schedule=sched)
-        W_ns = np.asarray(jax.jit(rc_ns.approximate_unknowns)(Ilm))
-        W_pl = np.asarray(jax.jit(rc_pl.approximate_unknowns)(Ilm))
-        assert W_pl.shape == W_ns.shape
-        for l in [2, 40, 63, 64, 65, 66]:
-            win = slice(L - l, L + l + 1)
-            d = np.abs(W_pl[l][win, win] - W_ns[l][win, win]).max()
-            assert d < 5e-3, (sched is not None, l, d)
-            # identity on the complement, exactly as the jnp path
-            out = W_pl[l].copy()
-            out[win, win] = 0.0
-            eye_out = np.eye(n_m, dtype=out.dtype)
-            eye_out[win, win] = 0.0
-            np.testing.assert_allclose(out, eye_out, atol=1e-5)
-
-
-def test_fused_projection_matches_split_path():
-    """The K5 fused projection (one pallas launch per bucket: B-assembly +
-    Newton-Schulz + V·W + selection, VMEM-resident) must reproduce the
-    split path — same procrustes iteration, B/W through HBM — including
-    radial masks, unused orders, odd-order kill, the averaged-intensity
-    l=0 column and the 1/sqrt(N) particle scaling."""
-    from dataclasses import replace
-    from xframe_tpu.projects.fxs.projections import ReciprocalConstraint
-    from xframe_tpu.ops.polar_schedule import DEFAULT_SCHEDULE
-    rng = np.random.default_rng(21)
-    L = 66
-    n_q = 2 * L + 3
-    n_m = 2 * L + 1
-    mats = [rng.normal(size=(n_q, min(2 * l + 1, n_q)))
-            + 1j * rng.normal(size=(n_q, min(2 * l + 1, n_q)))
-            for l in range(L + 1)]
-    radial_mask = np.ones((L + 1, n_q), dtype=bool)
-    radial_mask[:, :3] = False          # masked low-q band keeps the iterate
-    used = np.array([l for l in range(L + 1) if l != 5])
-    rc = ReciprocalConstraint.build(
-        mats, radial_points=np.linspace(0.1, 1.0, n_q), l_max=L,
-        used_order_ids=used, odd_orders_to_0=True,
-        use_averaged_intensity=True,
-        average_intensity=np.abs(rng.normal(size=n_q)) + 0.5,
-        radial_mask=radial_mask, n_particles=3.0, schmidt_scaling=True)
-    Ilm = (rng.normal(size=(n_q, n_m, L + 1))
-           + 1j * rng.normal(size=(n_q, n_m, L + 1))).astype(np.complex64)
-    for l in range(L + 1):
-        Ilm[:, :L - l, l] = 0
-        Ilm[:, L + l + 1:, l] = 0
-    for sched in (None, DEFAULT_SCHEDULE):
-        rc_split = replace(rc, procrustes_method="newton_schulz",
-                           ns_iterations=16, ns_schedule=sched)
-        rc_fused = replace(rc, procrustes_method="newton_schulz_pallas",
-                           ns_iterations=16, ns_schedule=sched)
-        ref = np.asarray(jax.jit(lambda x: rc_split(x))(Ilm))
-        got = np.asarray(jax.jit(lambda x: rc_fused(x))(Ilm))
-        assert got.shape == ref.shape
-        scale = np.abs(ref).max()
-        err = np.abs(got - ref).max() / scale
-        assert err < 5e-3, (sched is not None, err)
-        # structural zeros outside each order's window survive exactly on
-        # the kept-coefficient (masked / unused) entries
-        assert np.abs(got[:, :, 0][:, :L]).max() < 1e-5 * scale
-        assert np.abs(got[:, :, 0][:, L + 1:]).max() < 1e-5 * scale
-
-
-def test_k5_planes_thread_through_arg_tables():
-    """K5 at production payload: MTIP.arg_tables ships the pre-padded f32
-    kernel planes instead of V/PD, bound_tables swaps them in as traced
-    arguments, and the projection reproduces the embedded-constant result
-    BITWISE (same kernel, same data — only the delivery differs)."""
-    from xframe_tpu.projects.fxs.demo import make_demo_problem
-    p = make_demo_problem(24, 65, procrustes_method="newton_schulz_pallas")
-    mtip = p.mtip
-    assert mtip.rc.k5_active
-    tables = mtip.arg_tables()
-    assert "rc_k5_0_pdr" in tables and "rc_k5_1_pdr" in tables
-    assert "rc_k5_row0_re" in tables
-    assert "rc_V_re" not in tables, \
-        "K5 mode must not also ship the unused V/PD tables"
-    L, n_q = 65, 24
-    rng = np.random.default_rng(7)
-    Ilm = (rng.normal(size=(n_q, 2 * L + 1, L + 1))
-           + 1j * rng.normal(size=(n_q, 2 * L + 1, L + 1))
-           ).astype(np.complex64)
-    ref = np.asarray(jax.jit(lambda x: mtip.rc(x))(Ilm))
-
-    def run(t, x):
-        with mtip.bound_tables(t):
-            return mtip.rc(x)
-
-    got = np.asarray(jax.jit(run)(tables, Ilm))
-    np.testing.assert_array_equal(ref, got)
 
 
 def test_checkpointing_runner_resumes(problem, tmp_path):
@@ -589,17 +426,21 @@ def test_fixed_volume_shrink_wrap(problem):
 
 def test_run_batch_with_arg_tables_matches_embedded():
     """Production-scale payload path: threading every big table (Hankel,
-    fused SHT, fused-iteration positive-m, projection matrices) into jit as
-    ARGUMENTS (mtip.arg_tables + run_batch(tables=...)) must reproduce the
-    embedded-constant run bitwise — the only difference is where the bytes
-    live in the compiled artifact."""
+    Legendre, projection matrices, initial support) into jit as ARGUMENTS
+    (mtip.arg_tables +
+    run_batch(tables=...)) must reproduce the embedded-constant run
+    bitwise — the only difference is where the bytes live in the compiled
+    artifact."""
     from xframe_tpu.projects.fxs.demo import make_demo_problem
-    p = make_demo_problem(16, 8, fused_sht=True)
+    p = make_demo_problem(16, 8)
     sched = [Segment("HIO", 4, betas=np.full(4, 0.5), ft_stab=True),
              Segment("SW", sigma=p.mtip.sw.default_sigma, threshold=0.1),
              Segment("ER", 2, betas=np.zeros(2), ft_stab=True)]
     tables = p.mtip.arg_tables()
-    assert {"h_wf_re", "f_PW", "fi_Pp_t", "rc_V_re"} <= set(tables)
+    assert set(tables) == {"h_wf_re", "h_wf_im", "h_wi_re", "h_wi_im",
+                           "sht_P_e", "sht_P_o", "sht_PW_e", "sht_PW_o",
+                           "rc_V_re", "rc_V_im", "rc_PD_re", "rc_PD_im",
+                           "initial_support"}
     rho0s = p.initial_density_batch(3, 2)
     rho0s_t = p.initial_density_batch(3, 2, tables=tables)
     np.testing.assert_array_equal(np.asarray(rho0s), np.asarray(rho0s_t))
@@ -612,7 +453,9 @@ def test_run_batch_with_arg_tables_matches_embedded():
                                   np.asarray(st_tab.rho))
     # the host objects were restored after tracing (no tracer leakage)
     assert isinstance(p.mtip.ft.hankel._wf, np.ndarray)
+    assert isinstance(p.mtip.ft.sht._PW_e, np.ndarray)
     assert isinstance(p.mtip.rc.V_pad, np.ndarray)
+    assert isinstance(p.mtip.initial_support, np.ndarray)
 
 
 def test_fixed_volume_bucketed_matches_sort():
@@ -654,21 +497,6 @@ def test_fixed_volume_bucketed_matches_sort():
         jnp.ones(shape, jnp.float32)))
     vol_eq = (w_int.ravel() * keep_eq).sum()
     assert 0 <= vol_eq - target < w_int.max() * 1.001, (vol_eq, target)
-
-
-def test_pallas_polar_kernel_matches(problem):
-    """The VMEM-resident pallas Newton-Schulz kernel (interpret mode on CPU)
-    must reproduce the jnp polar iteration and drive phasing identically."""
-    from dataclasses import replace
-    rho0 = _initial_density(problem, jax.random.PRNGKey(5))
-    psi = problem["ft"].forward(rho0)
-    Ilm = problem["ft"].sht.forward_real((psi * psi.conj()).real)
-    rc_ns = replace(problem["mtip"].rc, procrustes_method="newton_schulz")
-    rc_pl = replace(problem["mtip"].rc,
-                    procrustes_method="newton_schulz_pallas")
-    W_ns = np.asarray(rc_ns.approximate_unknowns(Ilm))
-    W_pl = np.asarray(rc_pl.approximate_unknowns(Ilm))
-    assert np.abs(W_ns - W_pl).max() < 5e-3
 
 
 def test_initial_density_batch_key_seed_with_tables():

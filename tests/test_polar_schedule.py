@@ -75,7 +75,7 @@ def test_numpy_matrix_polar_matches_svd_f64():
 
 def test_jnp_schedule_path_matches_numpy():
     """projections.polar_unitary_newton_schulz(schedule=...) (the lax.scan
-    path used when pallas is off) reproduces the host application in f64 and
+    path) reproduces the host application in f64 and
     stays unitary in complex64 (the margin band absorbs f32 matmul noise)."""
     import jax
     import jax.numpy as jnp
@@ -96,36 +96,6 @@ def test_jnp_schedule_path_matches_numpy():
     for k in range(3):
         w = W32[k]
         assert np.abs(w.conj().T @ w - np.eye(n)).max() < 2e-3
-
-
-def test_pallas_schedule_kernel_parity():
-    """polar_unitary_pallas with a schedule (interpret mode on CPU) matches
-    the jnp schedule path, including zero-padded lanes (odd polynomials keep
-    exact-zero singular values at zero)."""
-    import jax.numpy as jnp
-    from xframe_tpu.ops.pallas_kernels import polar_unitary_pallas
-    from xframe_tpu.projects.fxs.projections import polar_unitary_newton_schulz
-
-    rng = np.random.default_rng(9)
-    n, p = 30, 128
-    M = rng.normal(size=(2, n, n)).astype(np.float32) \
-        + 1j * rng.normal(size=(2, n, n)).astype(np.float32)
-    a = np.abs(M)
-    nrm = np.sqrt(a.sum(1).max(-1) * a.sum(2).max(-1))[:, None, None]
-    Mn = (M / nrm).astype(np.complex64)
-    re = np.zeros((2, p, p), np.float32)
-    im = np.zeros((2, p, p), np.float32)
-    re[:, :n, :n] = Mn.real
-    im[:, :n, :n] = Mn.imag
-    wr, wi = polar_unitary_pallas(jnp.asarray(re), jnp.asarray(im),
-                                  schedule=DEFAULT_SCHEDULE, interpret=True)
-    W = np.asarray(wr)[:, :n, :n] + 1j * np.asarray(wi)[:, :n, :n]
-    W_ref = np.asarray(polar_unitary_newton_schulz(
-        jnp.asarray(Mn), schedule=DEFAULT_SCHEDULE))
-    assert np.abs(W - W_ref).max() < 5e-4
-    # pad block untouched: zero in, zero out
-    assert np.abs(np.asarray(wr)[:, n:, :]).max() == 0.0
-    assert np.abs(np.asarray(wi)[:, :, n:]).max() == 0.0
 
 
 def test_resolve_ns_schedule_modes():

@@ -143,20 +143,33 @@ _description: archival fidelity fixture
 
 
 def test_shipped_reconstruct_defaults_match_measured_optima():
-    """VERDICT r4 #6: the shipped tutorial defaults must encode the measured
-    full-schedule optimum (batch_size 2 under replay best tracking,
-    docs/performance.md round-4 sweep), and the description must describe
-    the shipped value rather than a stale finding."""
+    """The shipped reconstruct defaults name only settings that still act:
+    no key of a removed feature (fused kernels, replay best tracking), a
+    plain-path procrustes method, and no device timing quoted in any
+    description (the numbers belong with the hardware they were taken on,
+    in PERF.md)."""
+    import re
     from xframe_tpu.settings.loader import load_yaml
     path = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "xframe_tpu", "projects", "fxs", "settings", "reconstruct",
         "default_0.1.yaml")
     raw = load_yaml(path)
-    bs = raw["multi_start"]["batch_size"]
-    assert bs["_value"] == 2
-    desc = bs["_description"]
-    assert "batch 2" in desc and "2.31" in desc
-    # replay best tracking is the measured default; keep it the shipped one
-    bt = raw["main_loop"]["best_tracking"]
-    assert bt["_value"] == "replay"
+    assert raw["multi_start"]["batch_size"]["_value"] == 2
+    assert "fused_sht" not in raw["fourier_transform"]
+    assert "fused_bf16_tables" not in raw["fourier_transform"]
+    assert "best_tracking" not in raw["main_loop"]
+    pm = raw["projections"]["reciprocal"]["procrustes_method"]
+    assert pm["_value"] == "newton_schulz"
+    assert set(pm["_possible_values"]) == {"newton_schulz", "svd"}
+
+    def descriptions(node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if k == "_description":
+                    yield str(v)
+                else:
+                    yield from descriptions(v)
+
+    for d in descriptions(raw):
+        assert not re.search(r"\d s/|ms/iter|measured|\bTPU\b|MXU", d), d

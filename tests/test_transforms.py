@@ -235,537 +235,6 @@ class TestZernikeMode:
         assert np.abs(num - ana).max() / ana.max() < 5e-3
 
 
-def test_sht_mxu_dtype_bf16_close():
-    """Opt-in bf16 MXU inputs: same transform at reduced precision
-    (accumulation stays f32 via preferred_element_type)."""
-    import jax
-    import jax.numpy as jnp
-    from xframe_tpu.ops.sht import SphericalHarmonicTransform
-    L = 8
-    t32 = SphericalHarmonicTransform(L)
-    tbf = SphericalHarmonicTransform(L, mxu_dtype=jnp.bfloat16)
-    rng = np.random.default_rng(7)
-    c = rng.normal(size=(2, 2 * L + 1, L + 1)) \
-        + 1j * rng.normal(size=(2, 2 * L + 1, L + 1))
-    c = np.where(t32.lm_mask[None], c, 0).astype(np.complex64)
-    f32 = np.asarray(jax.jit(t32.inverse)(c))
-    fbf = np.asarray(jax.jit(tbf.inverse)(c))
-    rel = np.linalg.norm(fbf - f32) / np.linalg.norm(f32)
-    assert rel < 2e-2, rel
-    c32 = np.asarray(jax.jit(t32.forward)(jnp.asarray(f32)))
-    cbf = np.asarray(jax.jit(tbf.forward)(jnp.asarray(f32)))
-    rel = np.linalg.norm(cbf - c32) / np.linalg.norm(c32)
-    assert rel < 2e-2, rel
-
-
-class TestFusedSHT:
-    """ops.pallas_sht fused kernels (interpret mode on CPU) vs the jnp SHT."""
-
-    def test_fused_matches_jnp_all_paths(self):
-        import numpy as np
-        import jax
-        import jax.numpy as jnp
-        from xframe_tpu.ops.sht import SphericalHarmonicTransform
-        from xframe_tpu.ops.pallas_sht import FusedSHT
-        sht = SphericalHarmonicTransform(10, n_theta=24, n_phi=48)
-        fused = FusedSHT(sht, q_block=4, m_splits=2)
-        rng = np.random.default_rng(0)
-        f = (rng.normal(size=(6, 24, 48))
-             + 1j * rng.normal(size=(6, 24, 48))).astype(np.complex64)
-        c_ref = np.asarray(jax.jit(sht.forward)(jnp.asarray(f)))
-        assert np.abs(np.asarray(jax.jit(fused.forward)(jnp.asarray(f)))
-                      - c_ref).max() < 1e-5 * np.abs(c_ref).max()
-        g_ref = np.asarray(jax.jit(sht.inverse)(jnp.asarray(c_ref)))
-        assert np.abs(np.asarray(jax.jit(fused.inverse)(jnp.asarray(c_ref)))
-                      - g_ref).max() < 1e-5 * np.abs(g_ref).max()
-        fr = np.abs(f).astype(np.float32)
-        cr_ref = np.asarray(jax.jit(sht.forward_real)(jnp.asarray(fr)))
-        assert np.abs(np.asarray(jax.jit(fused.forward_real)(jnp.asarray(fr)))
-                      - cr_ref).max() < 1e-5 * np.abs(cr_ref).max()
-        ir_ref = np.asarray(jax.jit(sht.inverse_real)(jnp.asarray(c_ref)))
-        assert np.abs(np.asarray(jax.jit(fused.inverse_real)(
-            jnp.asarray(c_ref))) - ir_ref).max() < 1e-5 * np.abs(ir_ref).max()
-
-    def test_fused_bf16_tables(self):
-        """table_dtype=bfloat16 (the XF_FUSED_MXU_BF16 production mode):
-        tables are stored bf16 at the host — no in-kernel table copy, half
-        the table VMEM/HBM — and the kernels convert data operands to match.
-        Accuracy: ~bf16 mantissa (8 bits) relative error per transform."""
-        import numpy as np
-        import jax
-        import jax.numpy as jnp
-        import ml_dtypes
-        from xframe_tpu.ops.sht import SphericalHarmonicTransform
-        from xframe_tpu.ops.pallas_sht import FusedSHT
-        from xframe_tpu.ops.pallas_mtip import FusedIteration
-        sht = SphericalHarmonicTransform(10, n_theta=24, n_phi=48)
-        fused = FusedSHT(sht, q_block=4, m_splits=1,
-                         table_dtype=ml_dtypes.bfloat16)
-        assert fused._PW.dtype == ml_dtypes.bfloat16
-        assert fused._E_re.dtype == ml_dtypes.bfloat16
-        rng = np.random.default_rng(3)
-        f = (rng.normal(size=(6, 24, 48))
-             + 1j * rng.normal(size=(6, 24, 48))).astype(np.complex64)
-        c_ref = np.asarray(jax.jit(sht.forward)(jnp.asarray(f)))
-        c_bf = np.asarray(jax.jit(fused.forward)(jnp.asarray(f)))
-        rel = np.linalg.norm(c_bf - c_ref) / np.linalg.norm(c_ref)
-        assert rel < 2e-2, rel
-        g_ref = np.asarray(jax.jit(sht.inverse)(jnp.asarray(c_ref)))
-        g_bf = np.asarray(jax.jit(fused.inverse)(jnp.asarray(c_ref)))
-        rel = np.linalg.norm(g_bf - g_ref) / np.linalg.norm(g_ref)
-        assert rel < 2e-2, rel
-        # FusedIteration positive-m tables follow the FusedSHT dtype
-        fi = FusedIteration(fused, q_block=4)
-        assert fi._Pp_t.dtype == ml_dtypes.bfloat16
-        assert fi._Ip_re.dtype == ml_dtypes.bfloat16
-
-    def test_fused_ft_and_mtip_track_reference(self):
-        import numpy as np
-        import jax
-        from xframe_tpu.projects.fxs.demo import make_demo_problem
-        from xframe_tpu.projects.fxs.phasing import Segment
-        p0 = make_demo_problem(16, 8)
-        p1 = make_demo_problem(16, 8, fused_sht=True)
-        schedule = [Segment("HIO", 4, betas=np.full(4, 0.5), ft_stab=True),
-                    Segment("SW", sigma=p0.mtip.sw.default_sigma,
-                            threshold=0.1),
-                    Segment("ER", 2, betas=np.zeros(2), ft_stab=True)]
-        r0 = p0.initial_density_batch(0, 2)
-        _, e0 = jax.jit(lambda r: p0.mtip.run_batch(r, schedule))(r0)
-        _, e1 = jax.jit(lambda r: p1.mtip.run_batch(r, schedule))(r0)
-        e0, e1 = np.asarray(e0), np.asarray(e1)
-        rel = np.abs(e0 - e1) / (np.abs(e0) + 1e-9)
-        # first iteration agrees to f32 precision; later iterations diverge
-        # only by the usual f32 reduction-order amplification
-        assert rel[:, 0, :2].max() < 1e-4
-        assert rel.max() < 0.05
-
-
-class TestFusedIteration:
-    """ops.pallas_mtip epilogue kernels (interpret mode) vs stepwise jnp."""
-
-    def _setup(self):
-        import numpy as np
-        from xframe_tpu.ops.sht import SphericalHarmonicTransform
-        from xframe_tpu.ops.pallas_sht import FusedSHT
-        from xframe_tpu.ops.pallas_mtip import FusedIteration
-        sht = SphericalHarmonicTransform(6, n_theta=16, n_phi=32)
-        fused = FusedSHT(sht, q_block=4, m_splits=1)
-        fi = FusedIteration(fused, q_block=4)
-        rng = np.random.default_rng(7)
-        return sht, fused, fi, rng
-
-    def test_forward_real_abs2(self):
-        import numpy as np
-        import jax
-        import jax.numpy as jnp
-        sht, fused, fi, rng = self._setup()
-        psi = (rng.normal(size=(8, 16, 32))
-               + 1j * rng.normal(size=(8, 16, 32))).astype(np.complex64)
-        ref = np.asarray(jax.jit(sht.forward_real)(
-            jnp.asarray((psi * psi.conj()).real.astype(np.float32))))
-        got = np.asarray(jax.jit(fused.forward_real_abs2)(jnp.asarray(psi)))
-        assert np.abs(got - ref).max() < 1e-5 * np.abs(ref).max()
-
-    def test_synthesize_abs2(self):
-        import numpy as np
-        import jax
-        import jax.numpy as jnp
-        sht, fused, fi, rng = self._setup()
-        cf = (rng.normal(size=(8, 13, 7))
-              + 1j * rng.normal(size=(8, 13, 7))).astype(np.complex64)
-        psi_ref = np.asarray(jax.jit(sht.inverse)(jnp.asarray(cf)))
-        Ilm_ref = np.asarray(jax.jit(sht.forward_real)(
-            jnp.asarray((psi_ref * psi_ref.conj()).real.astype(np.float32))))
-        psi, Ilm = jax.jit(fi.synthesize_abs2)(jnp.asarray(cf))
-        assert np.abs(np.asarray(psi) - psi_ref).max() \
-            < 1e-5 * np.abs(psi_ref).max()
-        assert np.abs(np.asarray(Ilm) - Ilm_ref).max() \
-            < 1e-4 * np.abs(Ilm_ref).max()
-
-    def test_inverse_real_project_fwd(self):
-        import numpy as np
-        import jax
-        import jax.numpy as jnp
-        from xframe_tpu.projects.fxs.projections import (
-            project_to_modified_intensity)
-        sht, fused, fi, rng = self._setup()
-        c = (rng.normal(size=(8, 13, 7))
-             + 1j * rng.normal(size=(8, 13, 7))).astype(np.complex64)
-        psi = (rng.normal(size=(8, 16, 32))
-               + 1j * rng.normal(size=(8, 16, 32))).astype(np.complex64)
-        I_new = np.asarray(jax.jit(sht.inverse_real)(jnp.asarray(c)))
-        inten = (psi * psi.conj()).real
-        pp_ref = np.asarray(project_to_modified_intensity(
-            jnp.asarray(psi), jnp.asarray(inten), jnp.asarray(I_new)))
-        c_ref = np.asarray(jax.jit(sht.forward)(jnp.asarray(pp_ref)))
-        num_ref = np.sum(np.abs(psi - pp_ref) ** 2)
-        den_ref = np.sum(inten)
-        c_out, num, den = jax.jit(fi.inverse_real_project_fwd)(
-            jnp.asarray(c), jnp.asarray(psi))
-        assert np.abs(np.asarray(c_out) - c_ref).max() \
-            < 1e-4 * np.abs(c_ref).max()
-        assert abs(float(num) - num_ref) < 1e-4 * abs(num_ref)
-        assert abs(float(den) - den_ref) < 1e-4 * abs(den_ref)
-
-    def test_inverse_real_project(self):
-        import numpy as np
-        import jax
-        import jax.numpy as jnp
-        from xframe_tpu.projects.fxs.projections import (
-            project_to_modified_intensity)
-        sht, fused, fi, rng = self._setup()
-        c = (rng.normal(size=(8, 13, 7))
-             + 1j * rng.normal(size=(8, 13, 7))).astype(np.complex64)
-        psi = (rng.normal(size=(8, 16, 32))
-               + 1j * rng.normal(size=(8, 16, 32))).astype(np.complex64)
-        I_new = np.asarray(jax.jit(sht.inverse_real)(jnp.asarray(c)))
-        inten = (psi * psi.conj()).real
-        pp_ref = np.asarray(project_to_modified_intensity(
-            jnp.asarray(psi), jnp.asarray(inten), jnp.asarray(I_new)))
-        num_ref = np.sum(np.abs(psi - pp_ref) ** 2)
-        den_ref = np.sum(inten)
-        pp, num, den = jax.jit(fi.inverse_real_project)(
-            jnp.asarray(c), jnp.asarray(psi))
-        assert np.abs(np.asarray(pp) - pp_ref).max() \
-            < 1e-5 * np.abs(pp_ref).max()
-        assert abs(float(num) - num_ref) < 1e-4 * abs(num_ref)
-        assert abs(float(den) - den_ref) < 1e-4 * abs(den_ref)
-
-    def test_inverse_real_project_weighted_partials(self):
-        """w_rec-weighted reciprocal-error partials (the reciprocal-grid
-        integration weights of the reference metric, fxs_IO_methods.py:
-        97-128) against weighted numpy sums."""
-        import numpy as np
-        import jax
-        import jax.numpy as jnp
-        from xframe_tpu.ops.pallas_mtip import FusedIteration
-        from xframe_tpu.projects.fxs.projections import (
-            project_to_modified_intensity)
-        sht, fused, fi, rng = self._setup()
-        w_rec = rng.random((8, 16)).astype(np.float32) + 0.1
-        fi_w = FusedIteration(fused, q_block=fi.q_block, w_rec=w_rec)
-        c = (rng.normal(size=(8, 13, 7))
-             + 1j * rng.normal(size=(8, 13, 7))).astype(np.complex64)
-        psi = (rng.normal(size=(8, 16, 32))
-               + 1j * rng.normal(size=(8, 16, 32))).astype(np.complex64)
-        I_new = np.asarray(jax.jit(sht.inverse_real)(jnp.asarray(c)))
-        inten = (psi * psi.conj()).real
-        pp_ref = np.asarray(project_to_modified_intensity(
-            jnp.asarray(psi), jnp.asarray(inten), jnp.asarray(I_new)))
-        w3 = w_rec[:, :, None]
-        num_ref = np.sum(w3 * np.abs(psi - pp_ref) ** 2)
-        den_ref = np.sum(w3 * inten)
-        pp, num, den = jax.jit(fi_w.inverse_real_project)(
-            jnp.asarray(c), jnp.asarray(psi))
-        assert np.abs(np.asarray(pp) - pp_ref).max() \
-            < 1e-5 * np.abs(pp_ref).max()
-        assert abs(float(num) - num_ref) < 1e-4 * abs(num_ref)
-        assert abs(float(den) - den_ref) < 1e-4 * abs(den_ref)
-        c_out, num2, den2 = jax.jit(fi_w.inverse_real_project_fwd)(
-            jnp.asarray(c), jnp.asarray(psi))
-        assert abs(float(num2) - num_ref) < 1e-4 * abs(num_ref)
-        assert abs(float(den2) - den_ref) < 1e-4 * abs(den_ref)
-
-    @pytest.mark.parametrize('mode', ['midpoint', 'trapz'])
-    def test_hankel_synthesize(self, mode):
-        """K1h direct parity (ADVICE r4): hankel_synthesize(c) must equal
-        (sht.inverse(H(c)), H(c)) for both the all-samples (midpoint) and
-        skip_zero (trapz) weight layouts, including a batched leading axis."""
-        import numpy as np
-        import jax
-        import jax.numpy as jnp
-        from xframe_tpu.ops.hankel import (SphericalHankelTransform,
-                                           generate_weights)
-        from xframe_tpu.ops.pallas_mtip import FusedIteration
-        sht, fused, fi0, rng = self._setup()
-        n_q, L = 8, sht.l_max
-        wd = generate_weights(L, n_q, np.pi, 3, mode)
-        ht = SphericalHankelTransform(wd, r_max=1.0)
-        fi = FusedIteration(fused, q_block=4, hankel=ht)
-        assert fi._hsyn_qb, "hsyn plan must fit at toy scale"
-        c = (rng.normal(size=(2, n_q, 2 * L + 1, L + 1))
-             + 1j * rng.normal(size=(2, n_q, 2 * L + 1, L + 1))
-             ).astype(np.complex64)
-        cf_ref = np.asarray(jax.jit(ht.forward)(jnp.asarray(c)))
-        psi_ref = np.asarray(jax.jit(sht.inverse)(jnp.asarray(cf_ref)))
-        psi, cf = jax.jit(fi.hankel_synthesize)(jnp.asarray(c))
-        assert np.abs(np.asarray(cf) - cf_ref).max() \
-            < 1e-4 * np.abs(cf_ref).max()
-        assert np.abs(np.asarray(psi) - psi_ref).max() \
-            < 1e-4 * np.abs(psi_ref).max()
-
-    def test_synthesize_update_all_methods(self):
-        import numpy as np
-        import jax
-        import jax.numpy as jnp
-        from functools import partial
-        from xframe_tpu.projects.fxs.projections import (
-            RealConstraint, hio_update, er_update, raar_update)
-        sht, fused, fi, rng = self._setup()
-        c_rho = (rng.normal(size=(8, 13, 7))
-                 + 1j * rng.normal(size=(8, 13, 7))).astype(np.complex64)
-        c_rt = (rng.normal(size=(8, 13, 7))
-                + 1j * rng.normal(size=(8, 13, 7))).astype(np.complex64)
-        rho_in = (rng.normal(size=(8, 16, 32))
-                  + 1j * rng.normal(size=(8, 16, 32))).astype(np.complex64)
-        support = rng.uniform(size=(8, 16, 32)) > 0.4
-        w = rng.uniform(0.1, 1.0, size=(8, 16, 32)).astype(np.float32)
-        rc = RealConstraint(threshold_low=0.05, limit_imag=0.3)
-        beta = 0.6
-        c_phase = np.exp(0.7j).astype(np.complex64)
-        rho_p = np.asarray(jax.jit(sht.inverse)(jnp.asarray(c_rho)))
-        rt = np.asarray(jax.jit(sht.inverse)(jnp.asarray(c_rt)))
-        for method, ft_stab in [("HIO", True), ("ER", True),
-                                ("RAAR", False), ("HIO", False)]:
-            rp = rho_p.copy()
-            if ft_stab:
-                # the kernel consumes the combined coefficient set
-                # d = (c_rho - c_rt)|_{row0<-c_rho[0]} and adds rho_in on
-                # rows q != 0 (linearity of the per-q synthesis)
-                d = (c_rho - c_rt).copy()
-                d[0] = c_rho[0]
-                corr = rho_in - rt
-                corr[0] = 0
-                rp = rp + corr
-            else:
-                d = c_rho
-            rp = rp * c_phase
-            ri = rho_in * c_phase
-            out, invalid = rc(jnp.asarray(rp), jnp.asarray(support))
-            out, invalid = np.asarray(out), np.asarray(invalid)
-            num_ref = np.sum(w * np.abs(rp - out) ** 2)
-            den_ref = np.sum(w * np.abs(rp) ** 2)
-            if method == "HIO":
-                new_ref = np.asarray(hio_update(
-                    jnp.asarray(ri), jnp.asarray(rp), jnp.asarray(out),
-                    jnp.asarray(invalid), beta))
-            elif method == "RAAR":
-                new_ref = np.asarray(raar_update(
-                    jnp.asarray(ri), jnp.asarray(rp), jnp.asarray(out),
-                    jnp.asarray(invalid), beta))
-            else:
-                new_ref = out
-            z_ref = np.sum(w * new_ref * new_ref)
-            z2_ref = np.sum(w * new_ref)
-            fn = jax.jit(partial(fi.synthesize_update, method=method,
-                                 ft_stab=ft_stab, real_constraint=rc))
-            rho_new, num, den, z, z2 = fn(
-                jnp.asarray(d), jnp.asarray(rho_in),
-                jnp.asarray(support, dtype=np.float32),
-                jnp.asarray(w), beta, c_phase)
-            scale = np.abs(new_ref).max()
-            assert np.abs(np.asarray(rho_new) - new_ref).max() < 2e-5 * scale, \
-                (method, ft_stab)
-            assert abs(float(num) - num_ref) < 1e-4 * abs(num_ref)
-            assert abs(float(den) - den_ref) < 1e-4 * abs(den_ref)
-            assert abs(complex(z) - z_ref) < 1e-4 * (abs(z_ref) + 1e-6)
-            assert abs(complex(z2) - z2_ref) < 1e-4 * (abs(z2_ref) + 1e-6)
-
-    def test_fused_pipeline_tracks_reference_run(self):
-        import numpy as np
-        import jax
-        from xframe_tpu.projects.fxs.demo import make_demo_problem
-        from xframe_tpu.projects.fxs.phasing import Segment
-        p0 = make_demo_problem(16, 8)
-        p1 = make_demo_problem(16, 8, fused_sht=True)
-        assert p1.mtip._fi is not None  # fully-fused pipeline auto-enabled
-        schedule = [Segment("HIO", 4, betas=np.full(4, 0.5), ft_stab=True),
-                    Segment("SW", sigma=p0.mtip.sw.default_sigma,
-                            threshold=0.1),
-                    Segment("ER", 2, betas=np.zeros(2), ft_stab=True),
-                    Segment("RAAR", 2, betas=np.full(2, 0.7))]
-        r0 = p0.initial_density_batch(0, 2)
-        s0, e0 = jax.jit(lambda r: p0.mtip.run_batch(r, schedule))(r0)
-        s1, e1 = jax.jit(lambda r: p1.mtip.run_batch(r, schedule))(r0)
-        e0, e1 = np.asarray(e0), np.asarray(e1)
-        rel = np.abs(e0 - e1) / (np.abs(e0) + 1e-9)
-        assert rel[:, 0, :2].max() < 1e-4
-        assert rel.max() < 0.05
-        d0, d1 = np.asarray(s0.rho), np.asarray(s1.rho)
-        assert np.abs(d0 - d1).max() < 0.05 * np.abs(d0).max()
-
-
-def test_lazy_best_state_matches_eager():
-    """The in-kernel lazy best-state tracking (best' selected inside the
-    NEXT step's K4) must reproduce the eager per-iteration XLA select
-    bitwise: same best_rho, best_err, best_mask, last_err."""
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-    from xframe_tpu.projects.fxs.demo import make_demo_problem
-    from xframe_tpu.projects.fxs.phasing import Segment, PhasingState
-
-    p = make_demo_problem(16, 8, fused_sht=True)
-    mtip = p.mtip
-    assert mtip._fi is not None
-    mtip.lazy_best = True          # force the in-kernel tracking path
-    schedule = [Segment("HIO", 5, betas=np.full(5, 0.5), ft_stab=True),
-                Segment("SW", sigma=mtip.sw.default_sigma, threshold=0.1),
-                Segment("ER", 3, betas=np.zeros(3), ft_stab=True)]
-    rho0 = p.initial_density_batch(0, 1)[0]
-
-    state, errs = jax.jit(lambda r: mtip.run(r, schedule))(rho0)
-
-    # eager reference: same fused kernels, per-iteration XLA best select
-    def eager_run(rho0):
-        st = mtip.initial_state(rho0)
-        all_errs = []
-        for seg in schedule:
-            if seg.method == "SW":
-                st = mtip._shrink_wrap(st, seg)
-                continue
-            sup_f = st.support.astype(mtip.rdtype)
-            z, z2 = mtip._anchor_stats(st.rho)
-            rho, best_rho, best_mask = st.rho, st.best_rho, st.best_mask
-            best_err, last = st.best_err, st.last_err
-            for beta in np.asarray(seg.betas):
-                # route through the SAME track_best kernel (flag=0 is a
-                # best pass-through) so the q-block — and hence reduction
-                # grouping — matches the lazy path bitwise
-                rho_new, _, err, err_rec, z, z2 = mtip._mtip_iteration_fused(
-                    rho, sup_f, jnp.asarray(beta, mtip.rdtype),
-                    seg.method, seg.ft_stab, z, z2,
-                    best_rho=best_rho, best_flag=jnp.asarray(0.0))
-                better = err < best_err
-                best_rho = jnp.where(better, rho_new, best_rho)
-                best_mask = jnp.where(better, st.support, best_mask)
-                best_err = jnp.minimum(err, best_err)
-                rho, last = rho_new, err
-                all_errs.append(jnp.stack([err, err_rec]))
-            st = PhasingState(rho, st.support, best_rho, best_mask,
-                              best_err, last)
-        return st, jnp.stack(all_errs)
-
-    state_e, errs_e = jax.jit(eager_run)(rho0)
-    assert np.array_equal(np.asarray(errs), np.asarray(errs_e))
-    assert np.array_equal(np.asarray(state.best_rho),
-                          np.asarray(state_e.best_rho))
-    assert float(state.best_err) == float(state_e.best_err)
-    assert np.array_equal(np.asarray(state.best_mask),
-                          np.asarray(state_e.best_mask))
-    assert float(state.last_err) == float(state_e.last_err)
-
-
-def test_fused_qblock_autosize_counts_mosaic_padding():
-    """The scoped-VMEM footprint model counts Mosaic tile padding (minor
-    dim -> 128 lanes): at production scale (L=128, 320x640) the analysis
-    table occupies 86.5 MB (2x nominal), the cap auto-raises to 124 MiB,
-    and q_block=5 fits (measured on chip: q_block=3 under the old unpadded
-    model OOM'd scoped VMEM by 2.49 MB). Tutorial scale keeps q_block=16
-    under the default 100 MB cap."""
-    from xframe_tpu.ops.sht import SphericalHarmonicTransform
-    from xframe_tpu.ops.pallas_sht import FusedSHT
-    tut = FusedSHT(SphericalHarmonicTransform(64, n_theta=256, n_phi=512))
-    assert tut.q_block == 16
-    assert tut._params.vmem_limit_bytes == 100 * 1024 * 1024
-    prod = FusedSHT(SphericalHarmonicTransform(128, n_theta=320, n_phi=640))
-    assert prod.q_block == 5
-    assert prod._params.vmem_limit_bytes == 124 * 1024 * 1024
-
-
-def test_vmem_plans_match_measured_chip_boundaries():
-    """The pure sizing models (fused_sht_vmem_plan / k4_vmem_plan) pinned to
-    every scoped-VMEM boundary measured on the v5e chip, at TUTORIAL and
-    PRODUCTION dimensions, f32 and bf16 table residency. These are the
-    models the production run (N_q=256, L=128) relies on to pick kernel
-    q-blocks that compile; each assertion encodes an on-chip OOM-or-fit
-    measurement (see docs/performance.md, production section)."""
-    from xframe_tpu.ops.pallas_sht import fused_sht_vmem_plan
-    from xframe_tpu.ops.pallas_mtip import k4_vmem_plan
-    MiB = 1024 * 1024
-    # f32 production forward/inverse SHT: chip ran q_block=5 under the
-    # auto-raised 124 MiB cap (87.9 MB of Mosaic-padded resident tables)
-    assert fused_sht_vmem_plan(320, 640, 128, 257, 4) == (5, 124 * MiB)
-    # bf16 production: q_block=9 measured 125.48 MiB needed > 124 MiB cap
-    # (OOM); q_block=8 compiled and ran -> the plan must pick exactly 8
-    assert fused_sht_vmem_plan(320, 640, 128, 257, 2) == (8, 124 * MiB)
-    # f32 tutorial: q_block=16 fits the default 100 MB cap (32 OOM'd)
-    assert fused_sht_vmem_plan(256, 512, 64, 129, 4) == (16, 100 * MiB)
-    # f32 production with the lane-ALIGNED order L=127 (1.31x faster MXU
-    # work): q_block=13 measured 149.6 MB, q_block=8 measured 126.2 MB
-    # (both OOM over the 124 MiB cap); q_block=6 compiled and ran
-    assert fused_sht_vmem_plan(320, 640, 127, 255, 4) == (6, 124 * MiB)
-    # K4 f32 production (P_t (264,129,320), 44.9 MB resident): the cap
-    # auto-raises (measured 104.6 MB needed at q_block 1) and the fused
-    # start block 5//2=2 survives
-    assert k4_vmem_plan(320, 640, (264, 129, 320), 264, 4,
-                        124 * MiB, 2, False) == (2, 124 * MiB)
-    # K4 bf16 production: q_block=4 measured 130.24 MiB used > 128 MiB
-    # physical VMEM (62.3 MiB of register spills) -> must halve to 2
-    assert k4_vmem_plan(320, 640, (264, 129, 320), 264, 2,
-                        124 * MiB, 4, False) == (2, 124 * MiB)
-    # K4 tutorial track_best: measured 114.5 MB at q_block=8 under the
-    # raised cap -> keeps the full block (halving measured 38% slower)
-    assert k4_vmem_plan(256, 512, (136, 65, 256), 136, 4,
-                        100 * MiB, 8, True) == (8, 124 * MiB)
-
-
-def test_fused_table_dtype_plumbs_through_ft_and_demo():
-    """fused_bf16_tables wiring: SphericalFourierTransform(fused_table_dtype=)
-    reaches FusedSHT (and so FusedIteration) without the env knob — the
-    settings-driven path the reconstruct worker uses."""
-    import ml_dtypes
-    from xframe_tpu.projects.fxs.demo import make_demo_problem
-    from xframe_tpu.projects.fxs.phasing import Segment
-    p = make_demo_problem(12, 6, fused_sht=True,
-                          fused_table_dtype=ml_dtypes.bfloat16)
-    assert p.ft._fused._PW.dtype == ml_dtypes.bfloat16
-    assert p.mtip._fi._Pp_t.dtype == ml_dtypes.bfloat16
-    sched = [Segment("HIO", 2, betas=np.full(2, 0.5), ft_stab=True)]
-    r0 = p.initial_density_batch(0, 1)
-    _, errs = jax.jit(lambda r: p.mtip.run_batch(r, sched))(r0)
-    assert np.isfinite(np.asarray(errs)).all()
-
-
-# -------------------------- accuracy vs harmonic order (VERDICT r3 #4)
-@pytest.mark.parametrize("L,nt,nph,tol", [
-    # measured errors (scripts/sht_accuracy.py, 2026-08-19, CPU interpret =
-    # identical arithmetic graph/tables to the TPU lowering):
-    #   L=16: fwd 1.42e-7 rt 1.45e-7 | L=64: 2.60e-7/2.71e-7
-    #   L=127: 3.32e-7/3.54e-7       | L=128: 2.61e-7/2.89e-7
-    # pinned at ~3x margin; the growth L=16 -> 128 is only 2.4x — no f32
-    # accuracy cliff up to (and past) the production order
-    (16, 64, 128, 5e-7),
-    (64, 256, 512, 9e-7),
-    (127, 320, 640, 1.1e-6),
-    (128, 320, 640, 1.1e-6),
-])
-def test_fused_sht_accuracy_vs_order(L, nt, nph, tol):
-    """f32 FusedSHT forward/inverse/round-trip error against a float64 host
-    reference on the production θ grids (reference transform contract:
-    shtns_plugin.py:94-135 — SHTns computes in f64; our f32 must stay
-    adequate at production order)."""
-    import sys
-    import os
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
-                                    "scripts"))
-    from sht_accuracy import HostSHT64, rel
-    from xframe_tpu.ops.pallas_sht import FusedSHT
-
-    ref = HostSHT64(L, nt, nph)
-    rng = np.random.default_rng(1)
-    shape = (3, 2 * L + 1, L + 1)
-    c0 = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) \
-        * ref.mask
-    f64 = ref.inverse(c0)
-    assert rel(ref.forward(f64), c0) < 1e-10          # f64 reference sanity
-
-    sht = SphericalHarmonicTransform(L, n_theta=nt, n_phi=nph)
-    fused = FusedSHT(sht)
-    f32 = np.asarray(f64, dtype=np.complex64)
-    c_f = np.asarray(jax.jit(fused.forward)(f32)) * ref.mask
-    f_i = np.asarray(jax.jit(fused.inverse)(c0.astype(np.complex64)))
-    rt = np.asarray(jax.jit(lambda x: fused.forward(fused.inverse(x)))(
-        c0.astype(np.complex64))) * ref.mask
-    assert rel(c_f, c0) < tol
-    assert rel(f_i, f64) < tol
-    assert rel(rt, c0) < tol
-    # the jnp path is tighter still (pairwise-summed einsums)
-    c_j = np.asarray(jax.jit(sht.forward)(f32)) * ref.mask
-    assert rel(c_j, c0) < tol / 2
-
-
 def test_hankel_f32_weight_assembly_production_dims():
     """VERDICT r4 #5 (part 1): the directly-f32-assembled Hankel weight
     tables at PRODUCTION dims (N_q=256, L=127) against f64 host assembly
@@ -848,28 +317,37 @@ def test_composed_ft_accuracy_production_shape():
     assert abs(d32 - d64) < 1e-5
 
 
-def test_fused_sht_accuracy_bf16_tables_production_order():
-    """bf16-resident tables: ~3e-3 relative per transform INDEPENDENT of L
-    (measured 2.4e-3 rt at L=16, 2.8e-3 at L=127) — adequate for the
-    error-tolerant HIO iterations they are offered for, pinned here."""
-    import sys
+# ------------------- jnp SHT accuracy vs order against a float64 reference
+_SHT_CASES = [(16, 64, 128, 3e-7), (64, 256, 512, 3e-7),
+              (127, 320, 640, 4e-7), (128, 320, 640, 4e-7)]
+
+
+@pytest.fixture(scope="module")
+def _sht_errors():
+    """measure() per case, computed once: the float32 jnp SHT forward /
+    inverse / round trip against scripts/sht_accuracy.HostSHT64 (float64)."""
     import os
-    import ml_dtypes
+    import sys
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
                                     "scripts"))
-    from sht_accuracy import HostSHT64, rel
-    from xframe_tpu.ops.pallas_sht import FusedSHT
+    from sht_accuracy import measure
+    cache = {}
 
-    L, nt, nph = 127, 320, 640
-    ref = HostSHT64(L, nt, nph)
-    rng = np.random.default_rng(2)
-    shape = (2, 2 * L + 1, L + 1)
-    c0 = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) \
-        * ref.mask
-    f64 = ref.inverse(c0)
-    sht = SphericalHarmonicTransform(L, n_theta=nt, n_phi=nph)
-    fused = FusedSHT(sht, table_dtype=ml_dtypes.bfloat16)
-    rt = np.asarray(jax.jit(lambda x: fused.forward(fused.inverse(x)))(
-        c0.astype(np.complex64))) * ref.mask
-    err = rel(rt, c0)
-    assert 1e-4 < err < 1e-2   # bf16 regime: far from f32, far from junk
+    def get(L, nt, nph):
+        if (L, nt, nph) not in cache:
+            cache[(L, nt, nph)] = measure(L, nt, nph, n_q=3, seed=1)
+        return cache[(L, nt, nph)]
+    return get
+
+
+@pytest.mark.parametrize("kind", ["forward", "inverse", "roundtrip"])
+@pytest.mark.parametrize("L,nt,nph,tol", _SHT_CASES)
+def test_jnp_sht_accuracy_vs_order(_sht_errors, L, nt, nph, tol, kind):
+    """float32 jnp SHT error on white band-limited coefficients against the
+    float64 host reference, on the production θ grids up to L=128 (reference
+    transform contract: shtns_plugin.py:94-135 computes in f64). Measured on
+    the CPU: 0.6–1.4e-7 at every order — no accuracy cliff up to the
+    production order; pinned at ~3x margin."""
+    err = _sht_errors(L, nt, nph)
+    assert err["sanity_f64"] < 1e-10           # the reference itself
+    assert err[kind] < tol, (kind, err[kind])

@@ -1,11 +1,11 @@
-"""xframe_tpu — TPU-native fluctuation X-ray scattering (FXS) reconstruction framework.
+"""xframe_tpu — fluctuation X-ray scattering (FXS) reconstruction framework in JAX.
 
 A ground-up JAX/XLA re-design of the capabilities of European-XFEL/xFrame
 (reference layout documented in SURVEY.md): angular cross-correlation of
 detector frames, rotational-invariant (B_l) extraction, MTIP iterative phasing
 (HIO/ER/RAAR + shrink-wrap), and SO(3) alignment/averaging — with the entire
 phasing iteration jit-compiled on device and multi-start reconstructions
-sharded over a TPU mesh.
+sharded over a device mesh.
 
 Top-level API (mirrors the reference's scripting interface,
 /root/reference/xframe/startup_routines.py:221-350):

@@ -9,15 +9,16 @@ explicit `type=none` marker (the reference cannot round-trip None).
 from __future__ import annotations
 
 import numpy as np
-import h5py
 
 
 def save(path, data: dict):
+    import h5py  # lazy: the phasing path imports the package without HDF5
     with h5py.File(path, "w") as f:
         _save_group(f, data)
 
 
 def load(path) -> dict:
+    import h5py
     with h5py.File(path, "r") as f:
         return _load_group(f)
 
@@ -68,6 +69,7 @@ def _load_group(group) -> dict:
 
 
 def _load_item(item):
+    import h5py
     tag = item.attrs.get("type", None)
     if isinstance(item, h5py.Dataset):
         if tag == "none":

@@ -62,7 +62,7 @@ def sph_legendre_table_full_m(l_max: int, x: np.ndarray) -> np.ndarray:
     Returns (n_m=2L+1, len(x), L+1) indexed [j, x, l]. The centered layout
     makes the valid-m block of each order l the contiguous range [L-l, L+l] —
     the key property that keeps padded per-l matrix ops (Procrustes unknowns,
-    V_l projections) dense and mask-free on TPU.
+    V_l projections) dense and mask-free.
     Negative orders via P̄_l^{-m} = (-1)^m P̄_l^m (orthonormal + CS phase).
     """
     t = sph_legendre_table(l_max, x)  # (nx, m, l)

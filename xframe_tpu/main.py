@@ -108,7 +108,7 @@ def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = argparse.ArgumentParser(
         prog="xframe-tpu",
-        description="TPU-native FXS reconstruction framework")
+        description="JAX FXS reconstruction framework")
     parser.add_argument("--setup_home", action="store_true",
                         help="create the home folder tree and exit")
     parser.add_argument("-d", "--debug", action="store_true",

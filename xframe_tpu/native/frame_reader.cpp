@@ -1,10 +1,10 @@
 // Multithreaded raw-frame batch reader for the correlate worker.
 //
-// TPU-native replacement for the IO side of the reference's fork-based frame
+// Replacement for the IO side of the reference's fork-based frame
 // fan-out (reference Multiprocessing.py process_mp_request over frame files +
 // correlate.py:302 process_batch): a thread pool reads many .raw files
 // straight into one preallocated batch buffer, so Python streams device-ready
-// numpy batches while the previous batch is correlating on the TPU.
+// numpy batches while the previous batch is correlating on the device.
 //
 // C ABI (used via ctypes from xframe_tpu.native):
 //   int read_frames(const char** paths, int n_paths, float* out,

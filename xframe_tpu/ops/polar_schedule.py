@@ -2,14 +2,13 @@
 
 The MTIP data projection computes the unitary polar factor of the per-order
 matrices B_l each iteration (reference fxs_Projections.py:752-790 uses an
-exact SVD; the rebuild's matmul-only Newton-Schulz runs on the MXU —
+exact SVD; the rebuild's matmul-only Newton-Schulz is batched GEMMs —
 projections.polar_unitary_newton_schulz). With the FIXED quintic
 coefficients (3.4445, -4.7750, 2.0315) every step multiplies small singular
 values by ~3.44, so reaching sigma ~ 1 from a conservative sigma_min = 1e-7
 costs 16 quintic + 4 cubic steps = 56 matmul-units per matrix — at the
 production scale (N_q = 256, L = 127) the data projection it dominates is
-160.9 GFLOP of the 738 GFLOP iteration, the largest single block
-(docs/performance.md roofline table).
+160.9 GFLOP of the 738 GFLOP iteration, the largest single block.
 
 This module computes a PER-STEP minimax-optimal schedule instead: at each
 step, over the current singular-value interval [lo, hi], pick the odd

@@ -1,6 +1,6 @@
 """SO(3) rotations and cross-correlation of spherical-harmonic expansions.
 
-TPU-native replacement for the reference's pysofft plugin
+Replacement for the reference's pysofft plugin
 (/root/reference/xframe/externalLibraries/soft_plugin.py): Wigner-d matrices
 are built once on the host by eigendecomposition of J_y (exact, stable to high
 l — no factorial overflow), and both coefficient rotation and the SO(3)
@@ -13,11 +13,15 @@ T_b = Σ_l d^l(β_b)·M^l  (per-β matmul-like contraction),
 C = FFT_2D over (m, m').
 
 Coefficient layout matches ops.sht: (..., n_m = 2L+1, L+1), centered m.
+Contractions run at lax.Precision.HIGHEST (no TF32 on a GPU).
 """
 from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
+from jax import lax
+
+_HI = lax.Precision.HIGHEST
 
 
 # ----------------------------------------------------------- Wigner-d (host)
@@ -73,7 +77,8 @@ def wigner_D_single(l_max: int, alpha: float, beta: float, gamma: float) -> np.n
 
 def rotate_coeff(coeff, D):
     """(Λ(R)f)^l_m = Σ_{m'} D^l_{m m'} f^l_{m'};  coeff (..., n_m, L+1)."""
-    return jnp.einsum("lmn,...nl->...ml", jnp.asarray(D, dtype=coeff.dtype), coeff)
+    return jnp.einsum("lmn,...nl->...ml", jnp.asarray(D, dtype=coeff.dtype),
+                      coeff, precision=_HI)
 
 
 # ------------------------------------------------------------ SO(3) correlator
@@ -116,11 +121,12 @@ class SO3Correlator:
         if f.ndim == 2:
             f, g = f[None], g[None]
         if radial_weights is None:
-            M = jnp.einsum("rml,rnl->lmn", f, g.conj())
+            M = jnp.einsum("rml,rnl->lmn", f, g.conj(), precision=_HI)
         else:
             w = jnp.asarray(radial_weights, dtype=self._d.dtype)
-            M = jnp.einsum("r,rml,rnl->lmn", w, f, g.conj())
-        T = jnp.einsum("blmn,lmn->bmn", self._d.astype(self.cdtype), M)
+            M = jnp.einsum("r,rml,rnl->lmn", w, f, g.conj(), precision=_HI)
+        T = jnp.einsum("blmn,lmn->bmn", self._d.astype(self.cdtype), M,
+                       precision=_HI)
         # C(α,β,γ) = Re Σ_{mm'} T_β[m,m'] e^{+imα} e^{+im'γ}  — the +i phases
         # make argmax(C) the rotation with rotate_coeff(g, D(α̂,β̂,γ̂)) ≈ f
         # (C = Re⟨Λ(R)g, f⟩; verified in tests/test_so3.py). Embed centered

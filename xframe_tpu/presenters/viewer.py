@@ -3,7 +3,7 @@ PNG composites (density slices + support + error metrics + PRTF).
 
 Capability replacement for the reference's interactive openGL viewer
 (reference xframe/presenters/openGLPresenter.py, SURVEY.md §2 viewer row):
-a TPU training pod has no display, so the viewer is a CLI renderer —
+an accelerator node has no display, so the viewer is a CLI renderer —
 ``xframe-tpu view <file.h5> [-o outdir] [-n N]`` — that writes the frames a
 user would otherwise rotate on screen. Full 3D inspection uses the vtk
 exports (io/vtk.py) in ParaView.

@@ -10,7 +10,7 @@ WORKER_HELP = {
     "correlate": (
         "compute angular cross-correlations",
         "Computes the averaged angular cross-correlation C(q1,q2,delta) of a "
-        "set of diffraction patterns on the TPU (per-frame polar regridding, "
+        "set of diffraction patterns on the device (per-frame polar regridding, "
         "corrections, FFT-based CCF). Provide a settings name, e.g. "
         "`xframe-tpu fxs correlate tutorial`."),
     "extract": (
@@ -22,7 +22,7 @@ WORKER_HELP = {
         "run MTIP phase retrieval",
         "Reconstructs the single-particle electron density with the MTIP "
         "iterative phasing scheme (HIO/ER/RAAR + shrink-wrap), multi-start "
-        "restarts batched and sharded over the TPU mesh."),
+        "restarts batched and sharded over the device mesh."),
     "average": (
         "align and average reconstructions",
         "SO(3)-aligns multiple reconstructions against a reference, averages "

@@ -5,9 +5,9 @@ cross_correlation.py:17-78, SURVEY.md §3.2): read raw frames (host IO) →
 mask/threshold → cartesian→polar interpolation → corrections → per-frame
 FFT cross-correlation with mask-CCF normalization → accumulate → ccd.h5.
 
-TPU design: the reference forked one process per CPU core and correlated
+Design: the reference forked one process per CPU core and correlated
 frame-by-frame; here frames stream through ONE jitted batch program
-(map_coordinates regrid + rfft + batched outer product on the MXU), with
+(map_coordinates regrid + rfft + batched outer product as one einsum), with
 host-side accumulation across batches.
 """
 from __future__ import annotations
@@ -19,7 +19,6 @@ import jax
 import jax.numpy as jnp
 
 from xframe_tpu.interfaces import ProjectWorkerInterface
-from xframe_tpu.library.hostio import to_host
 from xframe_tpu.library.physics import scattering_angle_to_reciprocal_radii
 from xframe_tpu.projects.fxs._database_ import ProjectDB
 from xframe_tpu.settings import loader as settings_loader
@@ -295,11 +294,13 @@ class Correlator:
             f = jnp.fft.rfft(polar * g, axis=-1)                # (B, n_q, n+1)
             m = jnp.fft.rfft(pmask.astype(jnp.float32) * g, axis=-1)
             # Σ_frames Î(q1)* Î(q2): batched outer product over the (possibly
-            # qrange_xcca-restricted) radial subsets — MXU einsum
+            # qrange_xcca-restricted) radial subsets — one einsum
             f1, f2 = f[:, self.q1_pos], f[:, self.q2_pos]
             m1, m2 = m[:, self.q1_pos], m[:, self.q2_pos]
-            cc_f = jnp.einsum("bqn,bpn->qpn", f1.conj(), f2)
-            cc_m = jnp.einsum("bqn,bpn->qpn", m1.conj(), m2)
+            cc_f = jnp.einsum("bqn,bpn->qpn", f1.conj(), f2,
+                              precision="highest")
+            cc_m = jnp.einsum("bqn,bpn->qpn", m1.conj(), m2,
+                              precision="highest")
         else:
             cc_f = cc_m = jnp.zeros((), dtype=jnp.complex64)
         waxs = jnp.sum(polar * g, axis=0)
@@ -324,7 +325,7 @@ class Correlator:
                 acc = out
             else:
                 acc = [jax.jit(jnp.add)(a, o) for a, o in zip(acc, out)]
-        cc_f, cc_m, waxs, count, n_good = [to_host(a) for a in acc]
+        cc_f, cc_m, waxs, count, n_good = [np.asarray(a) for a in acc]
         cc = None
         if self.with_ccf:
             # mask-CCF normalization (cross_correlation.py:56-62): per-Δ counts
@@ -580,8 +581,8 @@ class PanelCorrelator:
         self._bin_counts = counts.reshape(self.n_q, self.n_phi)
 
         # CSR-style inverse map: per polar bin, the (padded) pixel-index
-        # list. Binning then becomes a dense gather + sum — far better on TPU
-        # than a scatter/segment_sum (which lowers to sorts). Padding slots
+        # list. Binning then becomes a dense gather + sum — far better on an
+        # accelerator than a scatter/segment_sum (which lowers to sorts). Padding slots
         # point at a zero sentinel appended to each flattened frame.
         order = np.argsort(flat, kind="stable")
         sorted_bins = flat[order]
@@ -619,8 +620,8 @@ class PanelCorrelator:
         g = good[:, None, None]
         f = jnp.fft.rfft(polar * g, axis=-1)
         m = jnp.fft.rfft(jnp.broadcast_to(pmask, polar.shape) * g, axis=-1)
-        cc_f = jnp.einsum("bqn,bpn->qpn", f.conj(), f)
-        cc_m = jnp.einsum("bqn,bpn->qpn", m.conj(), m)
+        cc_f = jnp.einsum("bqn,bpn->qpn", f.conj(), f, precision="highest")
+        cc_m = jnp.einsum("bqn,bpn->qpn", m.conj(), m, precision="highest")
         waxs = jnp.sum(polar * g, axis=0)
         count = jnp.sum(jnp.broadcast_to(pmask, polar.shape)
                         * g[..., 0][:, :, None], axis=0)
@@ -636,7 +637,7 @@ class PanelCorrelator:
             out = list(self._process(batch, good))
             acc = out if acc is None else [add(a, o)
                                            for a, o in zip(acc, out)]
-        cc_f, cc_m, waxs, count, n_good = [to_host(a) for a in acc]
+        cc_f, cc_m, waxs, count, n_good = [np.asarray(a) for a in acc]
         ccf = np.fft.irfft(cc_f, self.n_phi, axis=-1)
         ccm = np.fft.irfft(cc_m, self.n_phi, axis=-1)
         cc = np.where(ccm > 0.5, ccf / np.where(ccm > 0.5, ccm, 1.0), 0.0)

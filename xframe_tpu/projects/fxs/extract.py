@@ -144,7 +144,6 @@ class ProjectWorker(ProjectWorkerInterface):
         extract.py:170-243)."""
         import jax
         import jax.numpy as jnp
-        from xframe_tpu.library.hostio import to_host
         from xframe_tpu.library.shapes import spherical_grid, polar_grid
         from xframe_tpu.projects.fxs.simulate_ccd import \
             build_density_from_shapes
@@ -172,7 +171,7 @@ class ProjectWorker(ProjectWorkerInterface):
                 psi = ft.forward(rho.astype(jnp.complex64))
                 return ft.sht.forward_real((psi * psi.conj()).real)
 
-            coeff = to_host(coeff_fn(np.asarray(density, dtype=np.float32)))
+            coeff = np.asarray(coeff_fn(np.asarray(density, dtype=np.float32)))
             bl = np.einsum("qml,pml->lqp", coeff, coeff.conj()).real \
                 .astype(complex)
             bl[1::2] = 0  # Friedel symmetry of |F|²
@@ -186,7 +185,7 @@ class ProjectWorker(ProjectWorkerInterface):
                                        reciprocity_coefficient=rc)
             grid = polar_grid(ft.rs, 2 * np.pi * np.arange(n_phi) / n_phi)
             density = build_density_from_shapes(grid, sh.shapes)
-            intensity = to_host(jax.jit(
+            intensity = np.asarray(jax.jit(
                 lambda r: (lambda p: (p * p.conj()).real)(
                     ft.forward(r.astype(jnp.complex64))))(
                     np.asarray(density, dtype=np.float32))).astype(np.float64)

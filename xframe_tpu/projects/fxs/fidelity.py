@@ -54,7 +54,6 @@ def align_to_ground_truth(density, shapes_opt, ft, integration_weights,
     The rotation search runs through the same Aligner the average worker
     uses (SO(3) correlation + point-inversion disambiguation); both inputs
     are centered first (the reconstruction's translational gauge)."""
-    from xframe_tpu.library.hostio import to_host, to_device_complex
     truth = ground_truth_density(shapes_opt, ft, dim=dim)
     if dim == 3:
         from xframe_tpu.projects.fxs.alignment import Aligner
@@ -62,8 +61,8 @@ def align_to_ground_truth(density, shapes_opt, ft, integration_weights,
     else:
         from xframe_tpu.projects.fxs.alignment import Aligner2D
         aligner = Aligner2D(ft, integration_weights)
-    truth_d = to_device_complex(truth.astype(np.complex64))
-    cand_d = to_device_complex(np.asarray(density).astype(np.complex64))
+    truth_d = jnp.asarray(truth.astype(np.complex64))
+    cand_d = jnp.asarray(np.asarray(density).astype(np.complex64))
     if center:
         truth_d = aligner.center(truth_d)[0]
         cand_d = aligner.center(cand_d)[0]
@@ -71,7 +70,7 @@ def align_to_ground_truth(density, shapes_opt, ft, integration_weights,
     rot, _, _, _ = aligner.align_batch(
         jax.jit(lambda x: x[None])(cand_d), ref_coeff, ref_rho=truth_d,
         check_point_inversion=True)
-    aligned = np.asarray(to_host(jax.jit(lambda r: r[0])(rot)))
-    truth_h = np.asarray(to_host(truth_d))
+    aligned = np.asarray(np.asarray(jax.jit(lambda r: r[0])(rot)))
+    truth_h = np.asarray(np.asarray(truth_d))
     corr = density_correlation(aligned, truth_h, integration_weights)
     return corr, aligned, truth_h

@@ -412,12 +412,10 @@ def enforce_sht_constraint(proj, sht, iterations=100, rel_err_limit=1e-6):
         I = sht.inverse(v)
         I = jnp.where(I.real < 0, 0.0, I.real).astype(v.dtype)
         return sht.forward(I)
-
-    from xframe_tpu.library.hostio import to_host
     err_old = np.inf
     converged = False
     for i in range(iterations):
-        Vnew = to_host(roundtrip(
+        Vnew = np.asarray(roundtrip(
             np.ascontiguousarray(V.real, dtype=np.float32),
             np.ascontiguousarray(V.imag, dtype=np.float32)))
         # per-l procrustes back onto the data matrices
@@ -516,7 +514,6 @@ def estimate_number_of_particles(proj_matrices, sht, search_space=(1.0, 10.0, 64
     → (n_particles, gradient curve, negative fractions, scales)."""
     import jax
     import jax.numpy as jnp
-    from xframe_tpu.library.hostio import to_host
 
     L = sht.l_max
     n_q = np.atleast_2d(np.asarray(proj_matrices[0])).shape[0]
@@ -538,7 +535,7 @@ def estimate_number_of_particles(proj_matrices, sht, search_space=(1.0, 10.0, 64
 
         return jax.vmap(frac)(jnp.asarray(scales, dtype=jnp.float32))
 
-    neg = to_host(negative_fractions(
+    neg = np.asarray(negative_fractions(
         np.ascontiguousarray(V.real, dtype=np.float32),
         np.ascontiguousarray(V.imag, dtype=np.float32),
         np.asarray(I00, dtype=np.float32)))

@@ -22,13 +22,23 @@ from typing import Any
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import lax
+
+# Every contraction of the data projection states its precision: a float32
+# matmul on a GPU may otherwise run in TF32 (~3 decimal digits), which would
+# break the Newton–Schulz unitarity target (ops.polar_schedule).
+_HI = lax.Precision.HIGHEST
+
+
+def _mm(spec, a, b):
+    return jnp.einsum(spec, a, b, precision=_HI)
 
 
 def polar_unitary_newton_schulz(M, iterations=18, eps=1e-12, order=5,
                                 schedule=None):
     """Unitary polar factor of a (batched) matrix via Newton–Schulz-type
-    matmul-only iterations — unlike jnp.linalg.svd this runs entirely on the
-    MXU, making the per-iteration Procrustes step ~free on TPU.
+    matmul-only iterations — unlike jnp.linalg.svd this is nothing but
+    batched GEMMs, which keeps the per-iteration Procrustes step cheap.
 
     order=3: X ← 1.5X − 0.5·X(X†X), σ growth 1.5×/step.
     order=5 (default): X ← aX + bX(X†X) + cX(X†X)², with the odd-polynomial
@@ -51,19 +61,19 @@ def polar_unitary_newton_schulz(M, iterations=18, eps=1e-12, order=5,
     X = M / (norm + eps)
 
     def cubic(X, _):
-        XhX = jnp.einsum("...ij,...ik->...jk", X.conj(), X)
-        return 1.5 * X - 0.5 * jnp.einsum("...ij,...jk->...ik", X, XhX), None
+        XhX = _mm("...ij,...ik->...jk", X.conj(), X)
+        return 1.5 * X - 0.5 * _mm("...ij,...jk->...ik", X, XhX), None
 
     if schedule is not None:
         coeffs = jnp.asarray(np.asarray(schedule, dtype=np.float32))
 
         def sched_step(X, abc):
             a, b, c = abc[0], abc[1], abc[2]
-            A = jnp.einsum("...ij,...ik->...jk", X.conj(), X)
+            A = _mm("...ij,...ik->...jk", X.conj(), X)
             B = (b.astype(X.dtype) * A
-                 + c.astype(X.dtype) * jnp.einsum("...ij,...jk->...ik", A, A))
+                 + c.astype(X.dtype) * _mm("...ij,...jk->...ik", A, A))
             return (a.astype(X.dtype) * X
-                    + jnp.einsum("...ij,...jk->...ik", X, B)), None
+                    + _mm("...ij,...jk->...ik", X, B)), None
 
         X, _ = jax.lax.scan(sched_step, X, coeffs)
         return X
@@ -75,9 +85,9 @@ def polar_unitary_newton_schulz(M, iterations=18, eps=1e-12, order=5,
     ca, cb, cc = 3.4445, -4.7750, 2.0315
 
     def quintic(X, _):
-        A = jnp.einsum("...ij,...ik->...jk", X.conj(), X)      # X†X
-        B = cb * A + cc * jnp.einsum("...ij,...jk->...ik", A, A)
-        return ca * X + jnp.einsum("...ij,...jk->...ik", X, B), None
+        A = _mm("...ij,...ik->...jk", X.conj(), X)      # X†X
+        B = cb * A + cc * _mm("...ij,...jk->...ik", A, A)
+        return ca * X + _mm("...ij,...jk->...ik", X, B), None
 
     X, _ = jax.lax.scan(quintic, X, None, length=iterations)
     # polish: the quintic coefficients leave σ oscillating in a ±0.3 band
@@ -113,9 +123,6 @@ class ReciprocalConstraint:
     pn_x: Any = None        # (K,) host: gradient abscissa (√N or N)
     pn_a: Any = None        # (n_q,) host: isotropic intensity I00·Y00 per shell
     pn_project: bool = False
-    # K5 trace-time plane overrides (set by MTIP.bound_tables; not fields)
-    _k5_planes = None
-    _k5_row0 = None
 
     @classmethod
     def build(cls, projection_matrices, radial_points, l_max,
@@ -188,11 +195,10 @@ class ReciprocalConstraint:
                    pn_project=bool(pn_project))
 
     def _ns_buckets(self):
-        """Tile-aligned NS crop buckets: [(l_lo, l_hi, h)] covering
-        l ∈ [0, L−1], where bucket k = orders [64(k−1), min(64k−1, L−1)] on
-        the centered window of half-width h = min(64k−1, L−1) (crop width
-        2h+1 = 127, 255, 383, … — each the widest that keeps every order in
-        the bucket within the same number of 128-lane MXU tiles)."""
+        """NS crop buckets: [(l_lo, l_hi, h)] covering l ∈ [0, L−1], where
+        bucket k = orders [64(k−1), min(64k−1, L−1)] on the centered window
+        of half-width h = min(64k−1, L−1) (crop width 2h+1 = 127, 255,
+        383, …)."""
         L, buckets, k = self.l_max, [], 1
         while 64 * (k - 1) <= L - 1:
             buckets.append((64 * (k - 1), min(64 * k - 1, L - 1),
@@ -214,12 +220,10 @@ class ReciprocalConstraint:
         Ilm: (n_q, n_m, L+1) → W: (L+1, n_m, n_m). The centered padding makes
         M_l + eye_complement block-diagonal, so the polar factor restricts
         to the true (2l+1)² unitary on the valid block. Method 'svd' is
-        exact; 'newton_schulz' is a matmul-only polar iteration that stays on
-        the MXU (polar_unitary_newton_schulz)."""
+        exact; 'newton_schulz' is a matmul-only polar iteration
+        (polar_unitary_newton_schulz)."""
         Ilt = jnp.moveaxis(Ilm, 2, 0)                      # (L+1, n_q, n_m)
-        B = self.PD @ Ilt                                  # (L+1, n_m, n_m)
-        if self.procrustes_method == "newton_schulz_pallas":
-            return self._unknowns_pallas(B)
+        B = _mm("lmq,lqn->lmn", self.PD, Ilt)             # (L+1, n_m, n_m)
         if self.procrustes_method == "newton_schulz":
             # eye-pad the complement at the block's RMS singular-value scale:
             # any positive multiple of I has polar factor I, and matching the
@@ -230,13 +234,12 @@ class ReciprocalConstraint:
             M = B + self._eye_mat(B.dtype) * (rms + 1e-20).astype(B.dtype)
             L, n_m = self.l_max, 2 * self.l_max + 1
             if n_m > 128 and L >= 1:
-                # MXU tile bucketing: order l only needs the centered
-                # (2l+1)-wide window, and MXU matmul cost quantizes in
-                # 128-lane tiles — so orders are grouped into crops of
-                # half-width 64k−1 (127 → 1 tile, 255 → 2 tiles, …). At
-                # L = 128 this runs l ≤ 63 on 1-tile 127² blocks instead of
-                # 2-tile 255² (NS FLOPs ×1.75 down); at L = 64 it reduces to
-                # the single (n_m−2) crop. polar(blockdiag(A, rms·I)) =
+                # order bucketing: order l only needs the centered
+                # (2l+1)-wide window, so orders are grouped into crops of
+                # half-width 64k−1 (127, 255, …). At L = 128 this runs
+                # l ≤ 63 on 127² blocks instead of 257² (NS FLOPs ×1.75
+                # down); at L = 64 it reduces to the single (n_m−2) crop.
+                # polar(blockdiag(A, rms·I)) =
                 # blockdiag(polar(A), I), so cropping is exact; the l = L
                 # block runs at full width.
                 parts = []
@@ -259,57 +262,13 @@ class ReciprocalConstraint:
                                                schedule=self.ns_schedule)
         u, _, vh = jnp.linalg.svd(B + self._eye_mat(B.dtype),
                                   full_matrices=False)
-        return u @ vh
-
-    def _unknowns_pallas(self, B):
-        """Newton–Schulz polar via the VMEM-resident pallas kernel
-        (ops.pallas_kernels): the same MXU tile buckets as the jnp path
-        (crops of half-width 64k−1, zero-padded to exact 128-lane tiles),
-        each bucket one pallas_call — the iterate never round-trips HBM
-        between steps. Zero padding is exact: an odd polynomial keeps zero
-        singular values at zero, and V_pad is zero outside the l-window, so
-        the pad block never reaches the projection."""
-        import jax as _jax
-        from xframe_tpu.ops.pallas_kernels import polar_unitary_pallas
-        L, n_m = self.l_max, 2 * self.l_max + 1
-        sizes = 2 * jnp.arange(L + 1, dtype=B.real.dtype) + 1
-        rms = jnp.sqrt(jnp.sum(jnp.abs(B) ** 2, axis=(-2, -1))
-                       / sizes)[..., None, None]
-        M = B + self._eye_mat(B.dtype) * (rms + 1e-20).astype(B.dtype)
-        if not (n_m > 128 and L >= 1):
-            return polar_unitary_newton_schulz(M, self.ns_iterations,
-                                               schedule=self.ns_schedule)
-        interp = _jax.default_backend() == "cpu"
-        parts = []
-        for (l_lo, l_hi, h) in self._ns_buckets() + [(L, L, L)]:
-            sl = slice(L - h, L + h + 1)
-            c = 2 * h + 1
-            p = -(-c // 128) * 128
-            crop = M[l_lo:l_hi + 1, sl, sl]
-            re = jnp.real(crop).astype(jnp.float32)
-            im = jnp.imag(crop).astype(jnp.float32)
-            if p > c:
-                pad = ((0, 0), (0, p - c), (0, p - c))
-                re, im = jnp.pad(re, pad), jnp.pad(im, pad)
-            wr, wi = polar_unitary_pallas(re, im, self.ns_iterations,
-                                          schedule=self.ns_schedule,
-                                          interpret=interp)
-            Wb = (wr[:, :c, :c] + 1j * wi[:, :c, :c]).astype(B.dtype)
-            if c == n_m:
-                parts.append(Wb)
-                continue
-            idx = np.arange(n_m)
-            outside = ((idx < L - h) | (idx > L + h)).astype(np.float32)
-            base = jnp.asarray(np.diag(outside)).astype(M.dtype)
-            W_full = jnp.broadcast_to(base, (l_hi - l_lo + 1, n_m, n_m))
-            parts.append(W_full.at[:, sl, sl].set(Wb))
-        return jnp.concatenate(parts, axis=0)
+        return _mm("...ij,...jk->...ik", u, vh)
 
     def project_coefficients(self, Ilm, W):
         """Replace I_l by V_l·W_l on used orders/unmasked q
         (mtip_projection, fxs_Projections.py:792-872)."""
         Ilt = jnp.moveaxis(Ilm, 2, 0)                      # (L+1, n_q, n_m)
-        proj = self.V_pad @ W                              # (L+1, n_q, n_m)
+        proj = _mm("lqm,lmn->lqn", self.V_pad, W)          # (L+1, n_q, n_m)
         # l=0: fixed data column, no unknown (zero_id branch)
         proj = proj.at[0].set(self.V_pad[0])
         take = (self.use_order[:, None] & self.radial_mask)[:, :, None]
@@ -321,117 +280,7 @@ class ReciprocalConstraint:
         out = out.at[0].mul(1.0 / float(np.sqrt(self.n_particles)))
         return jnp.moveaxis(out, 0, 2)                     # (n_q, n_m, L+1)
 
-    @property
-    def k5_active(self):
-        """True when __call__ dispatches to the K5 fused-projection kernel
-        (pallas polar path at a scale with >1 MXU tile bucket, f32)."""
-        return (self.procrustes_method == "newton_schulz_pallas"
-                and 2 * self.l_max + 1 > 128
-                and np.asarray(self.V_pad).dtype == np.complex64)
-
-    def k5_planes_host(self):
-        """Per-bucket pre-padded f32 kernel-input planes, computed ONCE on
-        the host (cached): [(l_lo, h, c, pdr, pdi, vr, vi, take)] over
-        `_ns_buckets() + [(L,L,L)]`, plus the l=0 row-fix planes
-        (v0r, v0i, take0). Threading these through jit as ARGUMENTS (see
-        phasing.MTIP.arg_tables) removes the per-iteration slice/pad glue
-        the first K5 cut paid on every scan step (~200 MB/iter of
-        loop-carried relayout at production scale)."""
-        cached = getattr(self, "_k5_host_cache", None)
-        if cached is not None:
-            return cached
-        L, n_m = self.l_max, 2 * self.l_max + 1
-        V = np.asarray(self.V_pad)
-        PD = np.asarray(self.PD)
-        n_q = V.shape[1]
-        nqp = -(-n_q // 128) * 128
-        take = (np.asarray(self.use_order)[:, None]
-                & np.asarray(self.radial_mask)).astype(np.float32)
-
-        def pad3(x, rows, cols):
-            return np.ascontiguousarray(np.pad(
-                x, ((0, 0), (0, rows - x.shape[1]), (0, cols - x.shape[2]))
-            ).astype(np.float32))
-
-        buckets = []
-        for (l_lo, l_hi, h) in self._ns_buckets() + [(L, L, L)]:
-            sl = slice(L - h, L + h + 1)
-            c = 2 * h + 1
-            cp = -(-c // 128) * 128
-            g = l_hi - l_lo + 1
-            pd = PD[l_lo:l_hi + 1, sl, :]
-            v = V[l_lo:l_hi + 1, :, sl]
-            tb = np.zeros((g, nqp, cp), np.float32)
-            tb[:, :n_q, :c] = take[l_lo:l_hi + 1][:, :, None]
-            buckets.append((l_lo, h, c,
-                            pad3(pd.real, cp, nqp), pad3(pd.imag, cp, nqp),
-                            pad3(v.real, nqp, cp), pad3(v.imag, nqp, cp),
-                            tb))
-        row = (np.ascontiguousarray(V[0].real.astype(np.float32)),
-               np.ascontiguousarray(V[0].imag.astype(np.float32)),
-               take[0] > 0)
-        self._k5_host_cache = (buckets, row)
-        return self._k5_host_cache
-
-    def _project_fused(self, Ilm):
-        """Whole data projection as ONE pallas launch per tile bucket (K5):
-        B-assembly, Newton–Schulz polar, V·W and the take-selection all run
-        VMEM-resident per order — B, M and W never exist in HBM, and the
-        split path's 4–5 launches (PD@I, NS scan, V_pad@W, where) collapse
-        to 3 bucket launches + the cheap l=0 row fix. The reference computes
-        the same projection via per-l SVDs on the host pool
-        (fxs_Projections.py:752-872). The PD/V/take kernel inputs are
-        pre-padded host planes (k5_planes_host), optionally swapped for
-        traced jit arguments by MTIP.bound_tables — only the Ilm-dependent
-        planes are formed per call."""
-        import jax as _jax
-        from xframe_tpu.ops.pallas_kernels import fused_projection_bucket
-        L, n_m = self.l_max, 2 * self.l_max + 1
-        n_q = Ilm.shape[0]
-        nqp = -(-n_q // 128) * 128
-        Ilt = jnp.moveaxis(Ilm, 2, 0)                  # (L+1, n_q, n_m)
-        interp = _jax.default_backend() == "cpu"
-        planes = getattr(self, "_k5_planes", None)
-        row0_planes = getattr(self, "_k5_row0", None)
-        if planes is None:
-            buckets, row = self.k5_planes_host()
-            planes = [tuple(jnp.asarray(p) for p in b[3:]) for b in buckets]
-            row0_planes = (jnp.asarray(row[0]), jnp.asarray(row[1]))
-            meta = [b[:3] for b in buckets]
-        else:
-            meta = [b[:3] for b in self.k5_planes_host()[0]]
-        take0 = jnp.asarray(self.k5_planes_host()[1][2])[:, None]
-
-        parts = []
-        for (l_lo, h, c), (pdr, pdi, vr, vi, tb) in zip(meta, planes):
-            sl = slice(L - h, L + h + 1)
-            cp = pdr.shape[1]
-            g = pdr.shape[0]
-            it = Ilt[l_lo:l_lo + g, :, sl]
-            itr = jnp.pad(jnp.real(it), ((0, 0), (0, nqp - n_q),
-                                         (0, cp - c)))
-            iti = jnp.pad(jnp.imag(it), ((0, 0), (0, nqp - n_q),
-                                         (0, cp - c)))
-            ob_re, ob_im = fused_projection_bucket(
-                pdr, pdi, itr, iti, vr, vi, tb,
-                l_lo=l_lo, h=h, c=c, n_q=n_q,
-                iterations=self.ns_iterations, schedule=self.ns_schedule,
-                interpret=interp)
-            ob = (ob_re[:, :n_q, :c]
-                  + 1j * ob_im[:, :n_q, :c]).astype(Ilm.dtype)
-            parts.append(jnp.zeros((g, n_q, n_m),
-                                   Ilm.dtype).at[:, :, sl].set(ob))
-        out = jnp.concatenate(parts, axis=0)
-        # l=0: fixed data column, no unknown (zero_id branch) + the 1/√N
-        # particle scaling of the ENTIRE row (fxs_Projections.py:866-870)
-        v0 = (row0_planes[0] + 1j * row0_planes[1]).astype(Ilm.dtype)
-        row0 = jnp.where(take0, v0, Ilt[0])
-        out = out.at[0].set(row0 / float(np.sqrt(self.n_particles)))
-        return jnp.moveaxis(out, 0, 2)
-
     def __call__(self, Ilm):
-        if self.k5_active and Ilm.dtype == jnp.complex64:
-            return self._project_fused(Ilm)
         return self.project_coefficients(Ilm, self.approximate_unknowns(Ilm))
 
     @property
@@ -445,7 +294,7 @@ class ReciprocalConstraint:
         which re-scans `scaled_I < 0` over a (K, grid) array per candidate;
         marked broken in the reference settings).
 
-        TPU-native exact reformulation: a pixel turns negative under scale
+        Exact reformulation: a pixel turns negative under scale
         s exactly when s < −I/a (a = isotropic contribution per shell), so
         ALL K negative fractions come from one histogram of r = −I/a over
         the scale grid — no (K × grid) materialization, fully jittable.
@@ -543,7 +392,7 @@ class ReciprocalConstraintPolar:
 
     def approximate_unknowns(self, Im):
         """Im: (n_q, M+1) → unit phases (M+1,)."""
-        u = jnp.einsum("mq,qm->m", self.VD, Im)
+        u = jnp.einsum("mq,qm->m", self.VD, Im, precision=_HI)
         mag = jnp.abs(u)
         phases = jnp.where(mag > 0, u / jnp.where(mag > 0, mag, 1.0), 1.0)
         if self.so_pin_order is not None:
@@ -679,7 +528,7 @@ class ShrinkWrap:
     either threshold between min and max of the (clipped) convolution
     (mode='threshold') or pick the threshold hitting a target support volume
     (mode='fixed_volume', fxs_Projections.py:260-283). The reference searches
-    the threshold by golden-section over repeated mask integrations; on TPU
+    the threshold by golden-section over repeated mask integrations; here
     the exact answer is one descending sort + weighted cumsum: the support is
     the set of highest-blur points whose integration weights sum to the
     target volume."""
@@ -742,7 +591,7 @@ class ShrinkWrap:
         'sort': exact quantile by descending sort + weighted cumsum —
         jit-friendly, no iterative search (reference fxs_Projections.py:260-283
         uses scipy golden-section per SW event). 'bucketed' avoids the
-        full-grid argsort (O(n log n) multi-pass on TPU at 16.8M points) with
+        full-grid argsort (O(n log n) multi-pass at 16.8M points) with
         three 512-way weighted-histogram refinements of the boundary value
         (O(n) elementwise passes) + one masked cumsum for the boundary bin.
 

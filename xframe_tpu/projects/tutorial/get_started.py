@@ -40,9 +40,7 @@ class ProjectWorker(ProjectWorkerInterface):
         def intensity_of(r):
             psi = ft.forward(r.astype("complex64"))
             return (psi * psi.conj()).real
-
-        from xframe_tpu.library.hostio import to_host
-        intensity = to_host(intensity_of(np.asarray(rho, dtype=np.float32)))
+        intensity = np.asarray(intensity_of(np.asarray(rho, dtype=np.float32)))
         import os
         folder = os.path.join(settings_loader.home_dir(), "data", "tutorial")
         run_path, run = self.db.next_run_folder(folder)

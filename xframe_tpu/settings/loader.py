@@ -31,7 +31,6 @@ import os
 import re
 
 import numpy as np
-import yaml
 
 from xframe_tpu.settings.tools import DictNamespace
 
@@ -54,11 +53,13 @@ def _eval_expr(expr, extra=None):
 
 
 def load_yaml(path):
+    import yaml  # lazy: the phasing path imports this package without YAML
     with open(path) as f:
         return yaml.safe_load(f) or {}
 
 
 def save_yaml(path, data):
+    import yaml
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         yaml.safe_dump(_plain(data), f, sort_keys=False)
@@ -364,6 +365,7 @@ def archive_settings(run_folder, raw, prefix="settings"):
     if text is not None:
         out = text
         if overrides:
+            import yaml
             out += ("\n# --- runtime overrides applied after load ---\n"
                     + yaml.safe_dump({"_runtime_overrides": _plain(overrides)},
                                      sort_keys=False))
